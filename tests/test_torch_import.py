@@ -1,0 +1,81 @@
+"""The port imports without JAX, and its files never import JAX or yolo_tpu.
+
+``yolo_tpu/__init__.py`` pulls in flax, optax and jax, so a port module that
+imported any ``yolo_tpu.*`` would drag JAX along. Triton, where a later
+kernel uses it, is imported inside the launching function only, so that the
+CPU suite can import every module.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "yolo_tpu_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN_ANYWHERE = ("jax", "jaxlib", "flax", "optax", "yolo_tpu")
+FORBIDDEN_AT_TOP = ("triton",)
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_imports_with_jax_blocked():
+    proc = _run(
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'yolo_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import yolo_tpu_torch, yolo_tpu_torch.inference, yolo_tpu_torch.ops.cuda_nms\n"
+        "import yolo_tpu_torch.predict, yolo_tpu_torch.convert, yolo_tpu_torch.models\n"
+        "import yolo_tpu_torch.training.checkpoints, yolo_tpu_torch.utils.kernels\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert yolo_tpu_torch.YOLOInference is yolo_tpu_torch.inference.YOLOInference\n"
+        "print('OK')\n"
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr[-3000:]
+
+
+def test_package_import_is_lazy():
+    proc = _run(
+        "import sys, yolo_tpu_torch\n"
+        "print(sorted(m for m in ('PIL', 'pydantic', 'triton', 'torch', 'jax')"
+        " if m in sys.modules))\n"
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]"
+
+
+def _imports(tree, top_level_only):
+    nodes = tree.body if top_level_only else ast.walk(tree)
+    for node in nodes:
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports(path):
+    tree = ast.parse(path.read_text())
+    for name in _imports(tree, top_level_only=False):
+        assert name.split(".")[0] not in FORBIDDEN_ANYWHERE, f"{path}: imports {name}"
+    for name in _imports(tree, top_level_only=True):
+        assert name.split(".")[0] not in FORBIDDEN_AT_TOP, f"{path}: imports {name} at top"
+
+
+def test_kernel_build_flags():
+    from yolo_tpu_torch.utils import kernels
+
+    assert (PORT / "csrc" / "nms.cu").is_file()
+    assert [p.name for p in kernels.sources()] == ["nms.cu"]
+    flags = " ".join(kernels.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert kernels.library_path().parent.parent == kernels.BUILD_ROOT

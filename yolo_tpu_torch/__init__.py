@@ -1,0 +1,36 @@
+"""yolo_tpu_torch — the YOLOv1 framework ported to PyTorch and CUDA (Hopper).
+
+A second package beside the JAX one (``yolo_tpu``), with the same module
+names. It imports torch and never jax. So far it covers exact inference
+with the ResNet50 model: ``models`` (forward), ``ops.decode``, and per-class
+greedy NMS through the hand-written CUDA kernel ``csrc/nms.cu``
+(``ops.cuda_nms``), driven by ``inference.YOLOInference`` and the
+``predict`` CLI.
+
+Importing the package loads nothing else: the names below resolve on first
+use, so PIL, pydantic and the kernel build stay out until needed.
+"""
+
+from importlib import import_module
+
+from yolo_tpu_torch.version import __version__
+
+_LAZY = {
+    "BoundingBox": "yolo_tpu_torch.schemas",
+    "Detection": "yolo_tpu_torch.schemas",
+    "DetectionHead": "yolo_tpu_torch.models",
+    "ResNetBackbone": "yolo_tpu_torch.models",
+    "VOC_CLASSES": "yolo_tpu_torch.data",
+    "YOLOInference": "yolo_tpu_torch.inference",
+    "YOLOv1": "yolo_tpu_torch.models",
+    "create_model": "yolo_tpu_torch.models",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'yolo_tpu_torch' has no attribute {name!r}")
+
+
+__all__ = [*sorted(_LAZY), "__version__"]

@@ -1,0 +1,226 @@
+"""Inference engine: images -> forward -> decode -> NMS kernel, on one device.
+
+Port of yolo_tpu/inference.py in its exact mode (``optimize=None``, with
+``nms_impl="pallas"``): the same ``predict`` / ``predict_batch_arrays`` /
+``predict_batch_files`` / ``parse_predictions`` / ``iou`` /
+``non_max_suppression`` surface. A batch runs forward, decode and NMS on the
+engine's device, and only the fixed-shape ``Detections`` cross to the host.
+On CUDA, NMS is the hand-written kernel (ops/cuda_nms.py); on the CPU, its
+plain twin. It runs eagerly.
+
+The int8 engine (``optimize="int8"``, saved engine artifacts) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from yolo_tpu_torch.data.transforms import device_normalize, eval_transform
+from yolo_tpu_torch.ops.boxes import EPSILON
+from yolo_tpu_torch.ops.cuda_nms import nms
+from yolo_tpu_torch.ops.decode import Detections, decode_predictions
+
+
+class YOLOInference:
+    """Run object detection with the model on ``device``.
+
+    Args:
+        model: a ``YOLOv1`` (has .S, .B, .num_classes), weights loaded.
+        device: where the forward, decode and NMS run ("cuda", "cuda:1",
+            "cpu"). The model is moved there, put in eval mode, and on CUDA
+            kept in channels_last memory.
+        image_size: input resolution the model was built for (448).
+
+    Example:
+        >>> engine = YOLOInference(model, "cuda")
+        >>> detections = engine.predict("image.jpg", conf_threshold=0.25)
+    """
+
+    def __init__(self, model: torch.nn.Module, device: torch.device | str,
+                 image_size: int = 448):
+        self.device = torch.device(device)
+        model = model.to(self.device).eval()
+        if self.device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        self.model = model
+        self.image_size = image_size
+
+    @torch.inference_mode()
+    def _predict_batch(self, images, conf_threshold: float,
+                       nms_threshold: float) -> Detections:
+        images = torch.as_tensor(images, device=self.device)
+        if images.dtype == torch.uint8:
+            # uint8 wire format: raw resized RGB, normalized on the device.
+            images = device_normalize(images)
+        else:
+            images = images.to(torch.float32)
+        # NHWC -> NCHW view; its memory is already channels_last.
+        preds = self.model(images.permute(0, 3, 1, 2))
+        m = self.model
+        dets = decode_predictions(preds.float(), m.S, m.B, m.num_classes, conf_threshold)
+        return nms(dets, nms_threshold)
+
+    # ------------------------------------------------------------------- images
+    def load_image(self, image_path: str):
+        """Load an RGB PIL image (raises FileNotFoundError on a bad path)."""
+        from PIL import Image
+
+        return Image.open(image_path).convert("RGB")
+
+    def _transform(self, image) -> np.ndarray:
+        return eval_transform(
+            np.asarray(image.convert("RGB")), (self.image_size, self.image_size)
+        )
+
+    def preprocess_image(self, image) -> torch.Tensor:
+        """PIL image -> (1, size, size, 3) normalized float32 tensor on the device."""
+        return torch.from_numpy(self._transform(image))[None].to(self.device)
+
+    # ------------------------------------------------------------------ predict
+    def predict(
+        self,
+        image_path: str,
+        conf_threshold: float = 0.5,
+        nms_threshold: float = 0.4,
+        class_names: Optional[Sequence[str]] = None,
+    ) -> List["Detection"]:
+        """Detect objects in one image file; returns Detection objects."""
+        batch = self.preprocess_image(self.load_image(image_path))
+        dets = self._predict_batch(batch, conf_threshold, nms_threshold)
+        return self._to_detections(_to_host(dets), 0, class_names)
+
+    def predict_batch_arrays(
+        self,
+        images,
+        conf_threshold: float = 0.5,
+        nms_threshold: float = 0.4,
+    ) -> Detections:
+        """Batched prediction: (N, H, W, 3) -> Detections on the engine's device.
+
+        ``images`` (numpy or torch, NHWC as in the JAX package) may be
+        normalized floats or raw resized uint8 RGB; uint8 ships 1 byte per
+        pixel and is normalized on the device. Nothing waits for the device
+        until the caller reads the result.
+        """
+        return self._predict_batch(images, conf_threshold, nms_threshold)
+
+    def predict_batch_files(
+        self,
+        image_paths: Sequence[str],
+        conf_threshold: float = 0.5,
+        nms_threshold: float = 0.4,
+        class_names: Optional[Sequence[str]] = None,
+        batch_size: int = 16,
+    ) -> List[List["Detection"]]:
+        """Detect objects in many files, ``batch_size`` images per forward.
+
+        Per-image results are identical to calling ``predict`` on each file.
+        """
+        results: List[List] = []
+        for start in range(0, len(image_paths), batch_size):
+            chunk = image_paths[start:start + batch_size]
+            batch = np.stack([self._transform(self.load_image(str(p))) for p in chunk])
+            dets = _to_host(self._predict_batch(batch, conf_threshold, nms_threshold))
+            results.extend(
+                self._to_detections(dets, i, class_names) for i in range(len(chunk))
+            )
+        return results
+
+    def parse_predictions(
+        self,
+        pred,
+        conf_threshold: float,
+        class_names: Optional[Sequence[str]] = None,
+    ) -> List["Detection"]:
+        """Decode one raw (S, S, B*5+C) grid into Detection objects (no NMS)."""
+        m = self.model
+        dets = decode_predictions(
+            torch.as_tensor(pred, dtype=torch.float32)[None],
+            m.S, m.B, m.num_classes, conf_threshold,
+        )
+        return self._to_detections(_to_host(dets), 0, class_names)
+
+    def _to_detections(
+        self, dets: Detections, index: int, class_names: Optional[Sequence[str]]
+    ) -> List["Detection"]:
+        from yolo_tpu_torch.schemas import BoundingBox, Detection
+
+        out = []
+        boxes = dets.boxes[index].numpy()
+        scores = dets.scores[index].numpy()
+        class_ids = dets.class_ids[index].numpy()
+        valid = dets.valid[index].numpy()
+        for k in np.nonzero(valid)[0]:
+            cid = int(class_ids[k])
+            name = class_names[cid] if class_names else f"class_{cid}"
+            x, y, w, h = (float(v) for v in boxes[k])
+            out.append(
+                Detection(
+                    class_id=cid,
+                    class_name=name,
+                    confidence=float(np.clip(scores[k], 0.0, 1.0)),
+                    bbox=BoundingBox(
+                        x=float(np.clip(x, 0, 1)),
+                        y=float(np.clip(y, 0, 1)),
+                        width=float(np.clip(w, 0, 1)),
+                        height=float(np.clip(h, 0, 1)),
+                    ),
+                )
+            )
+        # Confidence-descending, matching reference NMS output ordering.
+        out.sort(key=lambda d: -d.confidence)
+        return out
+
+    # -------------------------------------------------------- host-side helpers
+    def iou(self, bbox1, bbox2) -> float:
+        """Pairwise IoU on BoundingBox schemas (reference inference.py:212-249)."""
+        x1a, y1a, x2a, y2a = bbox1.to_corners()
+        x1b, y1b, x2b, y2b = bbox2.to_corners()
+        inter = max(0.0, min(x2a, x2b) - max(x1a, x1b)) * max(
+            0.0, min(y2a, y2b) - max(y1a, y1b)
+        )
+        return inter / (bbox1.area + bbox2.area - inter + EPSILON)
+
+    def non_max_suppression(
+        self,
+        detections: List["Detection"],
+        nms_threshold: Optional[float] = None,
+        iou_threshold: Optional[float] = None,
+    ) -> List["Detection"]:
+        """Host-side greedy per-class NMS on Detection lists (API parity with
+        reference inference.py:251-317, including the deprecated
+        ``iou_threshold``). ``predict_batch_arrays`` is the fast route."""
+        if iou_threshold is not None:
+            warnings.warn(
+                "Parameter 'iou_threshold' is deprecated, use 'nms_threshold'"
+                " instead.",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            threshold = iou_threshold
+        elif nms_threshold is not None:
+            threshold = nms_threshold
+        else:
+            threshold = 0.4
+
+        remaining = sorted(detections, key=lambda d: d.confidence, reverse=True)
+        keep: List = []
+        while remaining:
+            current = remaining.pop(0)
+            keep.append(current)
+            remaining = [
+                d
+                for d in remaining
+                if d.class_id != current.class_id
+                or self.iou(current.bbox, d.bbox) < threshold
+            ]
+        return keep
+
+
+def _to_host(dets: Detections) -> Detections:
+    return Detections(*(t.cpu() for t in dets))
