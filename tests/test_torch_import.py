@@ -35,6 +35,11 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch, yolo_tpu_torch.inference, yolo_tpu_torch.ops.cuda_nms\n"
         "import yolo_tpu_torch.predict, yolo_tpu_torch.convert, yolo_tpu_torch.models\n"
         "import yolo_tpu_torch.training.checkpoints, yolo_tpu_torch.utils.kernels\n"
+        "import yolo_tpu_torch.ops.loss, yolo_tpu_torch.ops.fused_bn, yolo_tpu_torch.data\n"
+        "import yolo_tpu_torch.data.loader, yolo_tpu_torch.data.transforms\n"
+        "import yolo_tpu_torch.training.optim, yolo_tpu_torch.training.trainer\n"
+        "import yolo_tpu_torch.training.logging, yolo_tpu_torch.train\n"
+        "import yolo_tpu_torch.bench_train\n"
         "assert 'triton' not in sys.modules\n"
         "assert yolo_tpu_torch.YOLOInference is yolo_tpu_torch.inference.YOLOInference\n"
         "print('OK')\n"
@@ -74,7 +79,7 @@ def test_kernel_build_flags():
     from yolo_tpu_torch.utils import kernels
 
     assert (PORT / "csrc" / "nms.cu").is_file()
-    assert [p.name for p in kernels.sources()] == ["nms.cu"]
+    assert [p.name for p in kernels.sources()] == ["fused_bn.cu", "nms.cu"]
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

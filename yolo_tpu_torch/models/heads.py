@@ -4,7 +4,8 @@ Port of yolo_tpu/models/heads.py::DetectionHead with the reference's module
 names (src/yolo/models.py:313-332): ``conv_layers.{0,2,4,6}`` are four 3x3
 convs to 1024 channels (the second with stride 2, 14x14 -> 7x7), each
 followed by LeakyReLU(0.1); ``fc_layers`` is Flatten -> Linear(4096) ->
-LeakyReLU -> Dropout(0.5) -> Linear(S*S*(B*5+C)). Flatten takes the logical
+LeakyReLU -> Dropout(0.5) -> Linear(S*S*(B*5+C)). The dropout is the port's
+generator-driven :class:`~yolo_tpu_torch.models.layers.Dropout`. Flatten takes the logical
 (C, H, W) order, as the reference does; on a channels_last tensor it copies.
 
 ``SimpleHead`` (the 24-conv backbone's head) is not ported yet.
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from yolo_tpu_torch.models.layers import conv, leaky_relu, linear
+from yolo_tpu_torch.models.layers import Dropout, conv, leaky_relu, linear
 
 
 class DetectionHead(nn.Module):
@@ -41,7 +42,7 @@ class DetectionHead(nn.Module):
             nn.Flatten(),
             linear(1024 * feature_size * feature_size, 4096, device=device),
             leaky_relu(),
-            nn.Dropout(0.5),
+            Dropout(0.5),
             linear(4096, S * S * (B * 5 + num_classes), device=device),
         )
 

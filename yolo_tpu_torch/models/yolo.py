@@ -54,18 +54,21 @@ def create_model(
     generator: torch.Generator | None = None,
     stage_sizes: Sequence[int] = (3, 4, 6, 3),
     image_size: int = 448,
+    fused_bn: bool | str = False,
 ) -> YOLOv1:
     """Build a YOLOv1 on ``device`` with PyTorch's default init, in eval mode.
 
     ``generator`` (on ``device``) draws the weights; None means a generator
     seeded with 0. ``stage_sizes`` cuts the ResNet's depth (tests use
-    (1, 1, 1, 1)); ``image_size`` fixes the head's fc1 width.
+    (1, 1, 1, 1)); ``image_size`` fixes the head's fc1 width; ``fused_bn``
+    (False, True/"stats" or "full") selects the backbone's train-mode BN
+    path. ``model.train()`` / ``model.eval()`` stand for JAX's ``train=``.
     """
     if backbone != "resnet":
         raise NotImplementedError(
             f"backbone {backbone!r} is not ported yet; only 'resnet' is"
         )
-    bb = ResNetBackbone(stage_sizes, device=device)
+    bb = ResNetBackbone(stage_sizes, device=device, fused_bn=fused_bn)
     head = DetectionHead(
         bb.out_channels, num_classes, S, B,
         feature_size=head_feature_size(image_size, len(stage_sizes)),

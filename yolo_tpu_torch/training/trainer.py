@@ -1,0 +1,244 @@
+"""Train and eval steps, and the epoch loop with the reference's checkpoint cadence.
+
+Port of yolo_tpu/training/trainer.py. One optimizer step runs eagerly:
+uint8 NHWC images -> ``device_normalize`` on the device -> NCHW
+(channels_last on the GPU) -> forward, under bf16 autocast with ``use_amp``
+-> loss in float32 -> backward -> ``clip_grad_norm_`` -> Adam -> schedule.
+BN statistics update in the forward (train mode). The loss parts stay on
+the device; the epoch loop syncs with the host only at ``log_interval`` and
+at the end of the epoch (the reference syncs five scalars every batch).
+Mesh/data-parallel arguments belong to the parallelism slice; the mAP
+evaluator is not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from yolo_tpu_torch.data.loader import pad_batch
+from yolo_tpu_torch.data.transforms import device_normalize
+from yolo_tpu_torch.ops.loss import yolo_loss
+from yolo_tpu_torch.training.checkpoints import (
+    save_best_map_model,
+    save_best_model,
+    save_checkpoint,
+)
+from yolo_tpu_torch.training.logging import (
+    log_batch_metrics,
+    log_epoch_metrics,
+    print_epoch_header,
+    print_loss_metrics,
+    print_map_metrics,
+)
+
+LOSS_KEYS = ("total", "coord", "conf_obj", "conf_noobj", "class")
+
+
+def _to_host(totals: Dict[str, torch.Tensor], count: int) -> Dict[str, float]:
+    """Mean loss parts as floats, with one device-to-host copy."""
+    values = (torch.stack([totals[k] for k in LOSS_KEYS]) / max(count, 1)).tolist()
+    return dict(zip(LOSS_KEYS, values))
+
+
+class Trainer:
+    """Owns the train and eval steps of one model on one device.
+
+    Args:
+        model: a port ``YOLOv1`` already on ``device`` (channels_last on a GPU).
+        optimizer, schedule: from ``training.optim.make_optimizer``.
+        lambda_coord, lambda_noobj: loss weights (reference 5.0 / 0.5).
+        device: where the steps run.
+        use_amp: bf16 autocast for the forward (the loss stays float32).
+        clip_norm: global gradient-norm limit (reference 10.0).
+    """
+
+    def __init__(self, model, optimizer, schedule, lambda_coord: float = 5.0,
+                 lambda_noobj: float = 0.5, device: torch.device | str = "cuda",
+                 use_amp: bool = False, clip_norm: float = 10.0):
+        self.model, self.optimizer, self.schedule = model, optimizer, schedule
+        self.lambda_coord, self.lambda_noobj = lambda_coord, lambda_noobj
+        self.device = torch.device(device)
+        self.use_amp, self.clip_norm = use_amp, clip_norm
+        self.memory_format = (torch.channels_last if self.device.type == "cuda"
+                              else torch.contiguous_format)
+        self.params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    @property
+    def step(self) -> int:
+        """Optimizer steps taken (the schedule's count)."""
+        return self.schedule.last_epoch
+
+    def _images(self, images) -> torch.Tensor:
+        x = torch.as_tensor(images).to(self.device, non_blocking=True)
+        x = device_normalize(x) if x.dtype == torch.uint8 else x.float()
+        return x.permute(0, 3, 1, 2).contiguous(memory_format=self.memory_format)
+
+    def _loss(self, images, targets, sample_mask=None):
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.use_amp):
+            out = self.model(self._images(images))
+        targets = torch.as_tensor(targets).to(self.device, torch.float32, non_blocking=True)
+        m = self.model
+        return yolo_loss(out.float(), targets, S=m.S, B=m.B, C=m.num_classes,
+                         lambda_coord=self.lambda_coord, lambda_noobj=self.lambda_noobj,
+                         sample_mask=sample_mask)
+
+    def train_step(self, images, targets) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a batch; returns the loss parts (device scalars).
+
+        The gradients stay in ``.grad`` (after clipping) until the next step.
+        """
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        total, parts = self._loss(images, targets)
+        total.backward()
+        torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+        self.optimizer.step()
+        self.schedule.step()
+        return {k: v.detach() for k, v in parts.items()}
+
+    @torch.no_grad()
+    def eval_step(self, images, targets, sample_mask=None) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        return self._loss(images, targets, sample_mask)[1]
+
+    def train_epoch(self, dataloader, epoch: int, writer=None,
+                    log_interval: int = 10) -> Dict[str, float]:
+        """One epoch; returns the mean loss parts."""
+        totals = {k: torch.zeros((), device=self.device) for k in LOSS_KEYS}
+        num_batches = 0
+        start = time.time()
+        n_loader = len(dataloader)
+        for batch_idx, (images, targets) in enumerate(dataloader):
+            parts = self.train_step(images, targets)
+            for k in LOSS_KEYS:
+                totals[k] += parts[k]
+            num_batches += 1
+            if (batch_idx + 1) % log_interval == 0:
+                host = _to_host(parts, 1)
+                print(
+                    f"Epoch [{epoch}] Batch [{batch_idx + 1}/{n_loader}] "
+                    f"Loss: {host['total']:.4f} "
+                    f"(coord: {host['coord']:.4f}, conf_obj: {host['conf_obj']:.4f}, "
+                    f"conf_noobj: {host['conf_noobj']:.4f}, class: {host['class']:.4f}) "
+                    f"Time: {time.time() - start:.2f}s"
+                )
+                log_batch_metrics(writer, host, epoch, batch_idx, n_loader)
+                start = time.time()
+        return _to_host(totals, num_batches)
+
+    def validate(self, dataloader, compute_map: bool = False,
+                 num_classes: Optional[int] = None) -> Dict[str, float]:
+        """Validation loss pass; every image counts once.
+
+        A ragged final batch is zero-padded to the loader's batch size and
+        masked out of the loss with ``sample_mask`` (trainer.py:240-276).
+        """
+        if compute_map:
+            raise NotImplementedError("the mAP evaluator is not yet ported")
+        totals = {k: torch.zeros((), device=self.device) for k in LOSS_KEYS}
+        num_batches = 0
+        full_batch = getattr(dataloader, "batch_size", None)
+        for images, targets in dataloader:
+            n = images.shape[0]
+            mask = None
+            if full_batch is not None and n < full_batch:
+                images, targets, n = pad_batch(images, targets, full_batch)
+                mask = torch.arange(full_batch, device=self.device) < n
+            parts = self.eval_step(images, targets, mask)
+            for k in LOSS_KEYS:
+                totals[k] += parts[k]
+            num_batches += 1
+        return _to_host(totals, num_batches)
+
+
+def train(
+    trainer: Trainer,
+    train_loader,
+    val_loader,
+    num_epochs: int,
+    checkpoint_dir,
+    save_frequency: int = 5,
+    writer=None,
+    compute_map: bool = False,
+    map_frequency: int = 5,
+    num_classes: int = 20,
+    start_epoch: int = 1,
+    best_val_loss_init: Optional[float] = None,
+    best_map_init: Optional[float] = None,
+    profile_dir: Optional[str] = None,
+) -> Dict[str, float]:
+    """Epoch loop with the reference's checkpoint cadence (trainer.py:299-423).
+
+    Saves yolo_latest.pth every epoch, yolo_epoch_{N}.pth every
+    ``save_frequency`` epochs, yolo_best.pth when the validation loss
+    improves and yolo_best_map.pth when mAP50:95 does; ``profile_dir`` gets
+    a ``torch.profiler`` trace of the first epoch. Returns
+    {best_val_loss, final_train_loss[, best_mAP50:95]}.
+    """
+    checkpoint_dir = Path(checkpoint_dir)
+    checkpoint_dir.mkdir(parents=True, exist_ok=True)
+    best_val_loss = best_val_loss_init if best_val_loss_init is not None else float("inf")
+    best_map = best_map_init if best_map_init is not None else 0.0
+    final_train_loss = None
+    model, optimizer = trainer.model, trainer.optimizer
+
+    for epoch in range(start_epoch, num_epochs + 1):
+        print_epoch_header(epoch, num_epochs)
+        if hasattr(train_loader, "set_epoch"):
+            train_loader.set_epoch(epoch)
+        if profile_dir is not None and epoch == start_epoch:
+            train_losses = _profiled_epoch(trainer, train_loader, epoch, writer, profile_dir)
+        else:
+            train_losses = trainer.train_epoch(train_loader, epoch, writer)
+        print_loss_metrics("Training", train_losses, epoch)
+
+        print("\nValidating...")
+        should_map = compute_map and (epoch % map_frequency == 0 or epoch == num_epochs)
+        val_losses = trainer.validate(val_loader, compute_map=should_map,
+                                      num_classes=num_classes)
+        print_loss_metrics("Validation", val_losses, epoch)
+        print_map_metrics(val_losses)
+
+        lr = optimizer.param_groups[0]["lr"]
+        print(f"Learning rate: {lr:.6f}")
+        log_epoch_metrics(writer, train_losses, val_losses, lr, epoch)
+
+        save_checkpoint(checkpoint_dir / "yolo_latest.pth", epoch, model, optimizer,
+                        trainer.schedule, train_losses, val_losses)
+        if epoch % save_frequency == 0:
+            save_checkpoint(checkpoint_dir / f"yolo_epoch_{epoch}.pth", epoch, model,
+                            optimizer, trainer.schedule, train_losses, val_losses)
+        if val_losses["total"] < best_val_loss:
+            best_val_loss = val_losses["total"]
+            save_best_model(checkpoint_dir / "yolo_best.pth", epoch, model, optimizer,
+                            val_losses, "val_loss", best_val_loss)
+        if "mAP50:95" in val_losses and val_losses["mAP50:95"] > best_map:
+            best_map = val_losses["mAP50:95"]
+            save_best_map_model(checkpoint_dir / "yolo_best_map.pth", epoch, model,
+                                optimizer, val_losses, best_map)
+        final_train_loss = train_losses["total"]
+
+    results = {"best_val_loss": best_val_loss, "final_train_loss": final_train_loss}
+    if best_map > 0:
+        results["best_mAP50:95"] = best_map
+    return results
+
+
+def _profiled_epoch(trainer: Trainer, loader, epoch: int, writer, profile_dir) -> Dict:
+    """One epoch under ``torch.profiler``; the Chrome trace goes to ``profile_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        losses = trainer.train_epoch(loader, epoch, writer)
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / f"train_epoch{epoch}.trace.json"))
+    print(f"Profiler trace: {out / f'train_epoch{epoch}.trace.json'}")
+    return losses

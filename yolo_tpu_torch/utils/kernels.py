@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes``; nothing includes PyTorch's headers,
-so a cold build takes seconds. The library lands in
+Each source is compiled by its own ``nvcc``, all started together, and the
+objects are linked into one shared library with a plain C interface, loaded
+with ``ctypes``; nothing includes PyTorch's headers, so a cold build takes
+seconds. The library lands in
 ``<checkout>/build/yolo_tpu_torch/<hash>/``, keyed by a hash of the sources
 and the flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
@@ -27,7 +28,7 @@ LIB_NAME = "libyolo_tpu_torch_kernels.so"
 # with the __f*_rn intrinsics.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -68,24 +69,38 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
 
-    The compiler's output (with ptxas' register and spill report) is kept
+    One ``nvcc -c`` per source runs in parallel; one more links the objects.
+    The compilers' output (with ptxas' register and spill report) is kept
     beside the library as ``build.log``. Raises RuntimeError on failure.
     """
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cus = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc = find_nvcc()
+    tag = os.getpid()
+    cmds = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(out.parent / f"{src.stem}.{tag}.o"), str(src)]
+        for src in sources() if src.suffix == ".cu"
+    ]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        text, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{text}")
+    if not failed:
+        tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
+        link = [nvcc, "-shared", "-o", str(tmp), *(cmd[cmd.index("-o") + 1] for cmd in cmds)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    (out.parent / "build.log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -95,9 +110,15 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.yolo_nms.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, cf, vp]
-        lib.yolo_nms.restype = ci
+        lib.yolo_bn_stats.argtypes = [vp, vp, vp, cll, ci, ci, ci, vp]
+        lib.yolo_bn_normalize.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
+        lib.yolo_bn_bwd_reduce.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
+        lib.yolo_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
+        for fn in (lib.yolo_nms, lib.yolo_bn_stats, lib.yolo_bn_normalize,
+                   lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx):
+            fn.restype = ci
         lib.yolo_cuda_error_string.argtypes = [ci]
         lib.yolo_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
