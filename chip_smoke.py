@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width (ResNet50 YOLOv1, 448x448, 20
+Drives the port's three paths at full width (ResNet50 YOLOv1, 448x448, 20
 classes, random weights from a seed): inference (forward -> decode ->
-per-class greedy NMS through the hand-written CUDA kernel, float32) and
+per-class greedy NMS through the hand-written CUDA kernel, float32),
 training (Trainer.train_step with the train-mode BatchNorm through the four
-hand-written fused-BN kernels). Phases:
+hand-written fused-BN kernels) and int8 serving (fold -> calibrate ->
+quantize -> the quantize+space-to-depth stem kernel and the int8 conv +
+requant kernel for every conv -> decode -> NMS). Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
@@ -39,7 +41,21 @@ hand-written fused-BN kernels). Phases:
    then train step ms, img/s, idle share, the host's time to issue a step,
    synchronizing calls per step, top kernels and peak memory for fused_bn
    False / "stats" / "full", fp32 at batch 16 and 32, bf16 at batch 32 and
-   64.
+   64;
+11. int8 kernels vs plain twins: the stem front at batch 1, 16 and 64 on
+   448x448 uint8 and float32 images, and the int8 conv at every distinct
+   conv geometry and epilogue of the full-width engine at batch 2 (plus the
+   direct 7x7 stem), int8 output and int32 accumulator, bit for bit against
+   the twins on the card; kernel, twin and torch._int_mm times;
+12. int8 slice: YOLOInference(optimize="int8") calibrated on two seeded
+   batches of 8, predict_batch_arrays on 16 seeded uint8 images: the stem
+   kernel launched once and the conv kernel 58 times per forward (counts
+   zeroed just before), keep masks equal the twin path's on the card, the
+   grid correlates > 0.98 with the fp32 slice's; save_engine -> a fresh
+   engine gives identical detections; the predict CLI with --int8
+   --save-engine, then --engine;
+13. timing (information only): int8 and fp32 img/s at batch 1, 16, 64 and
+   256, the idle share, and each kernel's share of device time.
 
 Any failure raises and exits nonzero. The last lines are the kernels' JSON
 record, the card line, and {"ok": true, "device": {...}}. Needs one CUDA
@@ -69,8 +85,21 @@ IOU_T = 0.4
 RAW_ATOL_REL, RAW_ATOL_ABS = 1e-4, 1e-5
 
 
+# H100 SXM data sheet, dense, at the full 700 W.
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+FP32_FLOPS_S = 67e12
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float):
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate for their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def card_line() -> str:
@@ -233,7 +262,12 @@ def phase_kernel_vs_plain() -> dict:
             p_ms = cuda_ms(lambda: cuda_nms.nms_reference(*args, IOU_T, 1e-6), iters=5)
             per_kernel, _ = profile_kernels(lambda: cuda_nms.nms(gpu, IOU_T), iters=20)
             dev_ms = sum(v for k, v in per_kernel.items() if "nms_kernel" in k)
-            timings[(n, K)] = (k_ms, p_ms)
+            keep = cuda_nms.nms(cpu, IOU_T).valid
+            # One selection step per kept box, each an argmax and an IoU
+            # against K candidates (~12 float32 operations per candidate).
+            ops = int(keep.sum()) * K * 12
+            in_bytes = n * K * (16 + 4 + 4 + 1) + n * K
+            timings[(n, K)] = (k_ms, p_ms, *bound(in_bytes, ops, FP32_FLOPS_S))
             log(f"[3] time n={n} K={K}: kernel wrapper {k_ms:.4f} ms/call, plain twin "
                 f"on the card {p_ms:.3f} ms/call (CUDA events); kernel device time per "
                 f"launch {profiled(dev_ms)} (torch.profiler)")
@@ -391,7 +425,7 @@ BN_BODIES = {"stats": ("::stats_partial<", "::finalize<true>"),
              "normalize": ("::normalize<",),
              "bwd_reduce": ("::bwd_reduce_partial<", "::finalize<false>"),
              "bwd_dx": ("::bwd_dx<",)}
-HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at the full 700 W
+HBM_PEAK_GBS = HBM_BYTES_S / 1e9
 
 
 def _bn_tol(dtype):
@@ -490,6 +524,9 @@ def phase_fused_bn_kernels() -> dict:
                                                           has_res)),
             }
             tag = "f32" if dtype == torch.float32 else "bf16"
+            # One torch call computing bn_stats' function: torch.var_mean.
+            timings[(name, tag, "library_stats")] = cuda_ms(
+                lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0), iters=20)
             per_kernel, _ = profile_kernels(lambda: [kern() for kern, _ in calls.values()],
                                             iters=5)
             line = []
@@ -901,6 +938,327 @@ def phase_train_timing(card: str) -> None:
         del model
         torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------- phase 11
+def engine_convs(n: int, size: int = SIZE) -> list:
+    """(name, (N, H, W, Cin), Cout, k, stride, pad, mode) of every int8 conv
+    of the full-width s2d engine, in the order int8_forward runs them (58)."""
+    convs = [("stem", (n, size // 2, size // 2, 12), 64, 4, 1, ((2, 1), (2, 1)), "relu")]
+    h, cin = size // 4, 64
+    for si, blocks in enumerate((3, 4, 6, 3)):
+        p = 64 * 2**si
+        for bi in range(blocks):
+            s = 2 if si > 0 and bi == 0 else 1
+            tag = f"layer{si + 1}.{bi}"
+            ho = (h - 1) // s + 1
+            convs.append((f"{tag}.conv1", (n, h, h, cin), p, 1, 1, 0, "relu"))
+            convs.append((f"{tag}.conv2", (n, h, h, p), p, 3, s, 1, "relu"))
+            if bi == 0:
+                convs.append((f"{tag}.downsample", (n, h, h, cin), 4 * p, 1, s, 0, "none"))
+            convs.append((f"{tag}.conv3", (n, ho, ho, p), 4 * p, 1, 1, 0, "residual"))
+            h, cin = ho, 4 * p
+    for i, s in ((1, 1), (2, 2), (3, 1), (4, 1)):
+        convs.append((f"head.conv{i}", (n, h, h, cin), 1024, 3, s, 1, "leaky"))
+        h, cin = (h - 1) // s + 1, 1024
+    convs.append(("fc1", (n, 1, 1, h * h * cin), 4096, 1, 1, 0, "float"))
+    return convs
+
+
+def _distinct(convs) -> list:
+    seen, out = set(), []
+    for c in convs:
+        key = (c[1][1:], *c[2:])
+        if key not in seen:
+            seen.add(key)
+            out.append(c)
+    return out
+
+
+def _conv_operands(conv, seed: int):
+    """Seeded int8 x and HWIO weight, m and t that scale the accumulator to
+    about +-200 (so rounding and both clips occur), res and r, on the card."""
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_int8
+
+    _, (n, h, w, cin), cout, k, stride, pad, _ = conv
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand_i8 = lambda shape: torch.randint(  # noqa: E731
+        -127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+    ho, wo = cuda_int8.out_size(h, w, k, k, stride, pad)
+    m = (torch.rand(cout, generator=g, device="cuda") + 0.5) / float(40 * np.sqrt(k * k * cin))
+    t = torch.rand(cout, generator=g, device="cuda") * 6 - 3
+    return (rand_i8((n, h, w, cin)), rand_i8((k, k, cin, cout)), m, t,
+            rand_i8((n, ho, wo, cout)), torch.tensor(0.85, device="cuda"))
+
+
+def _conv_call(conv, ops_, mode=None, plain=False):
+    from yolo_tpu_torch.serving import cuda_int8
+
+    x, wq, m, t, res, r, wk = ops_
+    mode = mode or conv[6]
+    extra = dict(res=res, r=r) if mode == "residual" else {}
+    if plain:
+        return lambda: cuda_int8.conv_int8_reference(x, wq, m, t, conv[4], conv[5], mode,
+                                                     **extra)
+    return lambda: cuda_int8.conv_int8(x, wq, m, t, conv[4], conv[5], mode, wk=wk, **extra)
+
+
+def phase_int8_kernels(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+
+    dev = torch.device("cuda")
+    out = {"stem": {}, "conv": {}, "stem_err": 0.0, "conv_err": 0.0}
+    # --- kernel #6: the stem front, bit for bit at the slice's batches.
+    r = np.random.default_rng(41)
+    s_img = torch.tensor(0.0173, dtype=torch.float32, device=dev)
+    for batch in (1, SLICE_BATCH, 64):
+        for dtype in ("uint8", "float32"):
+            if dtype == "uint8":
+                host = r.integers(0, 256, size=(batch, SIZE, SIZE, 3), dtype=np.uint8)
+            else:
+                host = r.normal(0, 1.5, size=(batch, SIZE, SIZE, 3)).astype(np.float32)
+            images = torch.from_numpy(host).to(dev)
+            got = cuda_stem.quant_s2d(images, s_img)
+            ref = cuda_stem.quant_s2d_reference(images, s_img)
+            bad = int((got != ref).sum())
+            out["stem_err"] = max(out["stem_err"],
+                                  float((got.int() - ref.int()).abs().max()))
+            if bad:
+                raise AssertionError(f"stem kernel differs from its twin in {bad} values "
+                                     f"(batch {batch}, {dtype})")
+            k_ms = cuda_ms(lambda: cuda_stem.quant_s2d(images, s_img), iters=20)
+            p_ms = cuda_ms(lambda: cuda_stem.quant_s2d_reference(images, s_img), iters=5)
+            per_kernel, _ = profile_kernels(lambda: cuda_stem.quant_s2d(images, s_img), iters=10)
+            dev_ms = sum(v for k, v in per_kernel.items() if "quant_s2d_kernel" in k)
+            n_bytes = cuda_stem.bytes_moved(batch, SIZE, SIZE, images.element_size())
+            b_ms, b_by = bound(n_bytes, 0, FP32_FLOPS_S)
+            out["stem"][(batch, dtype)] = (k_ms, p_ms, b_ms, b_by, dev_ms)
+            log(f"[11] stem front, batch {batch}, {dtype}: == twin bit for bit; kernel "
+                f"{profiled(dev_ms)} device, wrapper {k_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB)")
+            del images, got, ref
+
+    # --- kernel #7: every distinct conv geometry and epilogue at batch 2, the
+    # int8 output and the int32 accumulator against the float64 twin.
+    convs = _distinct(engine_convs(2)) + [
+        ("stem (direct 7x7)", (2, SIZE, SIZE, 3), 64, 7, 2, 3, "relu")]
+    for ci, conv in enumerate(convs):
+        x, wq, m, t, res, rr = _conv_operands(conv, 100 + ci)
+        ops_ = (x, wq, m, t, res, rr, cuda_int8.pack_weight(wq))
+        acc_ref = cuda_int8.conv_acc_reference(x, wq, conv[4], conv[5])
+        for mode in (conv[6], "acc"):
+            got = _conv_call(conv, ops_, mode)()
+            extra = dict(res=res, r=rr) if mode == "residual" else {}
+            ref = cuda_int8.requant_reference(acc_ref, m, t, mode, **extra)
+            if got.dtype == ref.dtype:
+                out["conv_err"] = max(out["conv_err"],
+                                      float((got.double() - ref.double()).abs().max()))
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                diff = (got.double() - ref.double()).abs()
+                raise AssertionError(f"int8 conv {conv[0]} ({mode}) differs from its twin in "
+                                     f"{int((diff > 0).sum())} values, max {float(diff.max())}")
+        del acc_ref, got, ref, ops_
+    log(f"[11] int8 conv: {len(convs)} distinct geometries (every conv of the engine at "
+        f"batch 2 and the direct stem), own epilogue and int32 accumulator == twin bit for bit")
+
+    # Times at the slice's batch: every distinct geometry's kernel; the twin
+    # and torch._int_mm (the accumulator of a 1x1 conv) where named.
+    for ci, conv in enumerate(_distinct(engine_convs(SLICE_BATCH))):
+        x, wq, m, t, res, rr = _conv_operands(conv, 200 + ci)
+        ops_ = (x, wq, m, t, res, rr, cuda_int8.pack_weight(wq))
+        (n, h, w, cin), cout, k, stride, pad, mode = conv[1:]
+        k_ms = cuda_ms(_conv_call(conv, ops_), iters=10)
+        ops, n_bytes = cuda_int8.work(n, h, w, cin, cout, k, k, stride, pad, mode)
+        b_ms, b_by = bound(n_bytes, ops, INT8_OPS_S)
+        p_ms = lib_ms = None
+        line = ""
+        if conv[0] in ("layer1.1.conv1", "layer4.1.conv1", "layer2.0.conv2"):
+            p_ms = cuda_ms(_conv_call(conv, ops_, plain=True), iters=3, warmup=1)
+            line = f"; twin {p_ms:.3f} ms"
+        if k == 1 and stride == 1 and conv[0] != "fc1" and conv[0] in (
+                "layer1.1.conv1", "layer4.1.conv1"):
+            a, b = x.reshape(-1, cin), ops_[6].t()  # (M, K) row-major, (K, N) column-major
+            lib_ms = cuda_ms(lambda: torch._int_mm(a, b), iters=10)
+            acc = _conv_call(conv, ops_, "acc")().reshape(-1, cout)
+            if not torch.equal(torch._int_mm(a, b), acc):
+                raise AssertionError(f"torch._int_mm and the kernel's accumulator differ "
+                                     f"at {conv[0]}")
+            line += f"; torch._int_mm (accumulator only) {lib_ms:.4f} ms"
+        out["conv"][conv[0]] = (k_ms, p_ms, b_ms, b_by, lib_ms, ops)
+        log(f"[11] {card}: int8 conv {conv[0]} {tuple(conv[1])} -> {cout}, {k}x{k}/s{stride} "
+            f"{mode}, batch {SLICE_BATCH}: {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOPS; bound "
+            f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / k_ms:.1f}%){line}")
+        del ops_, x, wq, res
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+def _int8_model():
+    import torch
+
+    from yolo_tpu_torch.models import create_model
+
+    dev = torch.device("cuda")
+    return create_model("resnet", C, S, B, device=dev, image_size=SIZE,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def _counts():
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+
+    return cuda_stem.LAUNCHES, cuda_int8.LAUNCHES, cuda_nms.LAUNCHES
+
+
+def _zero_counts():
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+
+    cuda_stem.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
+
+
+def phase_int8_slice():
+    import torch
+    from PIL import Image
+
+    from yolo_tpu_torch import predict
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.inference import YOLOInference
+    from yolo_tpu_torch.ops.decode import decode_predictions
+    from yolo_tpu_torch.serving.engine import (default_impl, int8_forward, make_int8_engine_fn,
+                                               plain_conv)
+
+    dev = torch.device("cuda")
+    model = _int8_model()
+    r = np.random.default_rng(43)
+    calib = [device_normalize(torch.from_numpy(
+        r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)) for _ in range(2)]
+    t0 = time.perf_counter()
+    engine = YOLOInference(model, dev, image_size=SIZE, optimize="int8", calibration=calib)
+    torch.cuda.synchronize()
+    log(f"[12] int8 engine built (fold, bf16 calibration on 2x8 images, quantize, weight "
+        f"packing) in {time.perf_counter() - t0:.1f} s")
+    q = engine._int8_state["q"]
+    images = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
+    with torch.inference_mode():
+        grid = int8_forward(q, images, S=S, impl=default_impl())
+    thr = float(decode_predictions(grid, S, B, C, float("-inf")).scores.float().median())
+
+    _zero_counts()
+    out = engine.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches[:2] != (1, 58) or launches[2] < 1:
+        raise AssertionError(f"one int8 forward must launch the stem kernel once and the conv "
+                             f"kernel 58 times (and NMS), got {launches}")
+    twin = make_int8_engine_fn(S, B, C, conv=plain_conv)(q, images, thr, IOU_T)
+    with torch.inference_mode():
+        twin_grid = int8_forward(q, images, S=S, conv=plain_conv)
+    grid_diff = float((grid - twin_grid).abs().max())
+    if not torch.equal(out.valid, twin.valid):
+        raise AssertionError("int8 keep masks differ from the twin path's on the card")
+    if tuple(out.boxes.shape) != (SLICE_BATCH, S * S * B, 4) or not bool(
+            torch.isfinite(out.scores).all() and torch.isfinite(out.boxes).all()):
+        raise AssertionError("int8 detections: wrong shape or non-finite values")
+    log(f"[12] int8 slice, batch {SLICE_BATCH}, threshold {thr:.6g} (median score): launches "
+        f"stem {launches[0]}, conv {launches[1]}, NMS {launches[2]}; {int(out.valid.sum())} "
+        f"kept; keep masks == the twin path's on the card (grid max |diff| {grid_diff:.3g})")
+
+    with torch.inference_mode():
+        fp32 = YOLOInference(model, dev, image_size=SIZE)
+        ref = fp32.model(device_normalize(images).permute(0, 3, 1, 2))
+    corr = float(np.corrcoef(grid.double().cpu().numpy().ravel(),
+                             ref.double().cpu().numpy().ravel())[0, 1])
+    log(f"[12] int8 grid vs the exact fp32 slice's on the same images: correlation {corr:.6f} "
+        f"(max |fp32| {float(ref.abs().max()):.4g}, max |int8 - fp32| "
+        f"{float((grid - ref).abs().max()):.4g})")
+    if not corr > 0.98:
+        raise AssertionError(f"int8/fp32 grid correlation {corr} <= 0.98")
+    del fp32, ref
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        tmp = Path(tmp)
+        engine.save_engine(tmp / "engine.npz")
+        loaded = YOLOInference(model, dev, image_size=SIZE, optimize="int8",
+                               engine_artifact=str(tmp / "engine.npz"))
+        again = loaded.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
+        if not all(torch.equal(a, b) for a, b in zip(again, out)):
+            raise AssertionError("the reloaded engine's detections differ")
+        log(f"[12] save_engine -> {(tmp / 'engine.npz').stat().st_size / 1e6:.1f} MB; a "
+            f"fresh engine from it gives identical detections")
+        del loaded
+
+        ckpt = tmp / "yolo_random.pth"
+        torch.save(model.state_dict(), ckpt)
+        img_dir = tmp / "images"
+        img_dir.mkdir()
+        r = np.random.default_rng(11)
+        for k in range(8):
+            Image.fromarray(r.integers(0, 256, size=(375, 500, 3), dtype=np.uint8)).save(
+                img_dir / f"image{k}.jpg")
+        artifact = tmp / "cli_engine.npz"
+        base = ["--checkpoint", str(ckpt), "--image-dir", str(img_dir), "--device", "cuda",
+                "--conf-threshold=0.99"]
+        for flags in (["--int8", "--save-engine", str(artifact)], ["--engine", str(artifact)]):
+            out_dir = tmp / f"out{len(flags)}"
+            before = _counts()
+            predict.main([*base, "--output", str(out_dir), *flags])
+            grew = [a - b for a, b in zip(_counts(), before)]
+            written = sorted(p.name for p in out_dir.iterdir())
+            if written != [f"image{k}_pred.jpg" for k in range(8)] or grew[:2] != [1, 58]:
+                raise AssertionError(f"predict {flags}: wrote {written}, launches {grew}")
+            log(f"[12] python -m yolo_tpu_torch.predict {' '.join(flags[:1])}"
+                f"{' --save-engine' if '--save-engine' in flags else ''}: wrote 8 images, "
+                f"launches stem/conv/NMS {grew}")
+        if not artifact.is_file():
+            raise AssertionError("predict --save-engine wrote no artifact")
+    return engine, model, thr, launches
+
+
+# ---------------------------------------------------------------- phase 13
+def phase_int8_timing(engine, model, thr: float, card: str) -> None:
+    import torch
+
+    from yolo_tpu_torch.inference import YOLOInference
+
+    fp32 = YOLOInference(model, torch.device("cuda"), image_size=SIZE)
+    r = np.random.default_rng(47)
+    for batch in (1, 16, 64, 256):
+        images = torch.from_numpy(
+            r.integers(0, 256, size=(batch, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
+        rates = {}
+        for name, eng in (("int8", engine), ("fp32", fp32), ("int8 again", engine)):
+            run = lambda: eng.predict_batch_arrays(images, thr, IOU_T)  # noqa: E731
+            ms = cuda_ms(run, iters=3 if batch == 256 else 10, warmup=2)
+            rates[name] = (ms, batch * 1000.0 / ms)
+        log(f"[13] {card}: batch {batch}: " + "; ".join(
+            f"{k} {ms:.3f} ms/batch, {v:.1f} img/s" for k, (ms, v) in rates.items())
+            + " (CUDA events; uint8 images on the card -> decode -> NMS kernel)")
+        per_kernel, wall = profile_kernels(
+            lambda: engine.predict_batch_arrays(images, thr, IOU_T), iters=2)
+        busy = sum(per_kernel.values())
+        if not busy > 0:
+            log(f"[13]   int8, batch {batch}: device busy {profiled(busy)}")
+            continue
+        share = {name: sum(v for k, v in per_kernel.items() if body in k) for name, body in
+                 (("int8 conv", "int8_conv_kernel"), ("stem front", "quant_s2d_kernel"),
+                  ("NMS", "nms_kernel"))}
+        ms = rates["int8"][0]
+        log(f"[13]   int8, batch {batch}: device busy {busy:.3f} ms per batch (idle "
+            f"{100 * max(0.0, 1 - busy / ms):.1f}% of the CUDA-event time; {wall:.3f} ms wall "
+            f"under torch.profiler); " + ", ".join(
+                f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in share.items())
+            + f", other {busy - sum(share.values()):.3f} ms")
+        for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]:
+            log(f"[13]     {v:8.3f} ms  {name[:110]}")
+        del images
+    del fp32
+    torch.cuda.empty_cache()
+
 
 def main() -> None:
     if not (REPO / "yolo_tpu_torch" / "csrc" / "nms.cu").is_file():
@@ -930,9 +1288,13 @@ def main() -> None:
     bn_launches = timed(8, phase_train_slice)
     timed(9, phase_train_entry_points)
     timed(10, phase_train_timing, card)
+    i8k = timed(11, phase_int8_kernels, card)
+    engine, model, thr, i8_launches = timed(12, phase_int8_slice)
+    timed(13, phase_int8_timing, engine, model, thr, card)
+    del engine, model
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
 
-    k_ms, p_ms = kv["timings"][(SLICE_BATCH, 98)]
+    k_ms, p_ms, b_ms, b_by = kv["timings"][(SLICE_BATCH, 98)]
     record = {"kernels": [{
         "name": "nms",
         "route": "cuda",
@@ -942,11 +1304,18 @@ def main() -> None:
         "max_abs_err": kv["max_abs_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
     }]}
     replaces = {"stats": 98, "normalize": 155, "bwd_reduce": 222, "bwd_dx": 256}
+    from yolo_tpu_torch.ops.fused_bn import bytes_moved
+
+    m_stem, c_stem = 16 * 224 * 224, 64
     for name, line in replaces.items():
-        # ms / plain_ms: the stem BN of the fp32 slice (M = 802,816, C = 64).
+        # ms / plain_ms / bound: the stem BN of the fp32 slice (M = 802,816, C = 64).
         k_ms, p_ms, _ = bn["timings"][("stem bn1", "f32", name)]
+        b_ms, b_by = bound(bytes_moved(name, m_stem, c_stem, 4, relu=True), 0, FP32_FLOPS_S)
         record["kernels"].append({
             "name": f"bn_{name}",
             "route": "cuda",
@@ -956,7 +1325,42 @@ def main() -> None:
             "max_abs_err": bn["max_abs_err"][name],
             "ms": k_ms,
             "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": (bn["timings"][("stem bn1", "f32", "library_stats")]
+                           if name == "stats" else None),
         })
+    # The stem front at the slice's batch and wire format (16 uint8 images).
+    k_ms, p_ms, b_ms, b_by, _ = i8k["stem"][(SLICE_BATCH, "uint8")]
+    record["kernels"].append({
+        "name": "quant_s2d",
+        "route": "cuda",
+        "source": "yolo_tpu_torch/csrc/quant_s2d.cu",
+        "replaces": "yolo_tpu/serving/pallas_stem.py:38",
+        "launches": i8_launches[0],
+        "max_abs_err": i8k["stem_err"],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    })
+    # The int8 conv at layer1's 1x1 256 -> 64 (blocks 1-2), batch 16, where
+    # torch._int_mm computes the same accumulator.
+    k_ms, p_ms, b_ms, b_by, lib_ms, _ = i8k["conv"]["layer1.1.conv1"]
+    record["kernels"].append({
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "yolo_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "yolo_tpu/serving/pallas_int8.py:470",
+        "launches": i8_launches[1],
+        "max_abs_err": i8k["conv_err"],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

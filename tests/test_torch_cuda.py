@@ -1,4 +1,5 @@
-"""The CUDA kernels (NMS and the four fused-BN kernels) against their plain twins, on the card.
+"""The CUDA kernels (NMS, the four fused-BN kernels, the int8 stem front and
+the int8 conv) against their plain twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU and nvcc, and skip without
 them. Run them on the GPU machine with
@@ -177,3 +178,121 @@ def test_fused_bn_act_grads_equal_unfused_autograd(device):
     for name, a, ra in zip(("dx", "dscale", "dbias", "dres"), args, ref_args):
         torch.testing.assert_close(a.grad.cpu(), ra.grad, rtol=1e-4,
                                    atol=1e-4 * float(ra.grad.abs().max()), msg=name)
+
+
+# ------------------------------------------------------------ int8 serving
+# Both int8 kernels round every step as their twins do, so they must agree
+# bit for bit: no tolerance.
+@pytest.mark.parametrize("shape", [(1, 448, 448), (3, 18, 10), (2, 64, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_quant_s2d_kernel_equals_plain_twin(device, shape, dtype):
+    from yolo_tpu_torch.serving import cuda_stem
+
+    r = np.random.default_rng(sum(shape))
+    n, h, w = shape
+    if dtype == "uint8":
+        images = r.integers(0, 256, size=(n, h, w, 3), dtype=np.uint8)
+    else:
+        images = r.normal(0, 1.5, size=(n, h, w, 3)).astype(np.float32)
+    cpu = torch.from_numpy(images)
+    s_img = torch.tensor(0.0173, dtype=torch.float32)
+    before = cuda_stem.LAUNCHES
+    got = cuda_stem.quant_s2d(cpu.to(device), s_img.to(device))
+    torch.cuda.synchronize()
+    assert cuda_stem.LAUNCHES == before + 1
+    ref = cuda_stem.quant_s2d_reference(cpu, s_img)
+    assert torch.equal(got.cpu(), ref)
+    # ... and the twin on the card equals the twin on the CPU.
+    assert torch.equal(cuda_stem.quant_s2d_reference(cpu.to(device), s_img.to(device)).cpu(), ref)
+
+
+# (N, H, W, Cin, Cout, K, stride, pad): every geometry class of the engine,
+# with M and Cout not multiples of the tiles, ragged K (Cin = 3, 12) and
+# fc1 as a 1x1 conv over a wide channel axis.
+CONV_CASES = [
+    (2, 16, 16, 12, 64, 4, 1, ((2, 1), (2, 1))),  # s2d stem
+    (2, 30, 30, 3, 64, 7, 2, 3),                  # direct stem
+    (2, 9, 9, 64, 256, 1, 1, 0),                  # 1x1
+    (2, 10, 10, 256, 512, 1, 2, 0),               # downsample, stride 2
+    (3, 11, 7, 128, 128, 3, 1, 1),                # 3x3
+    (2, 12, 12, 128, 128, 3, 2, 1),               # 3x3 stride 2 (the TPU kernel's case)
+    (5, 1, 1, 3136, 96, 1, 1, 0),                 # fc1 as 1x1
+    (1, 5, 5, 32, 2, 3, 1, 1),                    # Cout = 2
+]
+
+
+def _conv_operands(case, seed=0):
+    n, h, w, cin, cout, k, stride, pad = case
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.integers(-127, 128, size=(n, h, w, cin), dtype=np.int8))
+    wq = torch.from_numpy(r.integers(-127, 128, size=(k, k, cin, cout), dtype=np.int8))
+    # m scales the accumulator (up to ~127^2 * K) into roughly +-200, so the
+    # rounding and both clips are exercised.
+    m = torch.from_numpy(r.uniform(0.5, 1.5, cout).astype(np.float32)) / float(
+        40 * np.sqrt(k * k * cin))
+    t = torch.from_numpy(r.uniform(-3, 3, cout).astype(np.float32))
+    return x, wq, m, t
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c[:7])))
+@pytest.mark.parametrize("tile", [0, 1, 2])
+def test_int8_conv_kernel_equals_plain_twin(device, monkeypatch, case, tile):
+    from yolo_tpu_torch.serving import cuda_int8
+
+    monkeypatch.setattr(cuda_int8, "pick_tile", lambda m_rows, cout: tile)
+    x, wq, m, t = _conv_operands(case, seed=tile)
+    stride, pad = case[6], case[7]
+    ho, wo = cuda_int8.out_size(x.shape[1], x.shape[2], wq.shape[0], wq.shape[1], stride, pad)
+    res = torch.from_numpy(np.random.default_rng(7).integers(
+        -127, 128, size=(x.shape[0], ho, wo, wq.shape[3]), dtype=np.int8))
+    r = torch.tensor(0.7, dtype=torch.float32)
+    gpu = lambda v: v.to(device)  # noqa: E731
+    wk = cuda_int8.pack_weight(gpu(wq))
+    for mode in cuda_int8.MODES:
+        extra = dict(res=res, r=r) if mode == "residual" else {}
+        ref = cuda_int8.conv_int8_reference(x, wq, m, t, stride, pad, mode, **extra)
+        before = cuda_int8.LAUNCHES
+        got = cuda_int8.conv_int8(gpu(x), gpu(wq), gpu(m), gpu(t), stride, pad, mode,
+                                  wk=wk, **{k: gpu(v) for k, v in extra.items()})
+        torch.cuda.synchronize()
+        assert cuda_int8.LAUNCHES == before + 1
+        assert got.dtype == ref.dtype and got.shape == ref.shape, mode
+        assert torch.equal(got.cpu(), ref), mode
+
+
+def test_int8_conv_rejects_what_the_kernel_does_not_take(device):
+    from yolo_tpu_torch.serving import cuda_int8
+
+    x, wq, m, t = (v.to(device) for v in _conv_operands((1, 4, 4, 16, 8, 1, 1, 0)))
+    with pytest.raises(ValueError):
+        cuda_int8.conv_int8(x.permute(0, 2, 1, 3), wq, m, t)  # not contiguous
+    with pytest.raises(ValueError):
+        cuda_int8.conv_int8(x, wq, m, t, mode="residual")  # no residual operand
+    with pytest.raises(ValueError):
+        cuda_int8.conv_int8(x, wq[..., :7], m[:7], t[:7])  # odd Cout
+
+
+def test_int8_engine_on_the_card_equals_the_cpu_engine(device):
+    """A small int8 engine through both kernels on the card against the same
+    q-params on the CPU (the twins): every int8 activation is exact, so the
+    grids differ only by the float32 FC sums' order."""
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
+                                               int8_forward, to_device)
+
+    model = create_model("resnet", 20, 7, 2, device="cpu", stage_sizes=(1, 1, 1, 1),
+                         image_size=64, generator=torch.Generator().manual_seed(0))
+    r = np.random.default_rng(3)
+    calib = torch.from_numpy(r.normal(size=(4, 64, 64, 3)).astype(np.float32))
+    _, q = build_int8_predict(model, [calib])
+    images = torch.from_numpy(r.integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8))
+    ref = int8_forward(q, images, impl=default_impl())
+    stem0, conv0 = cuda_stem.LAUNCHES, cuda_int8.LAUNCHES
+    got = int8_forward(to_device(q, device), images.to(device), impl=default_impl())
+    torch.cuda.synchronize()
+    assert cuda_stem.LAUNCHES - stem0 == 1
+    assert cuda_int8.LAUNCHES - conv0 == 1 + 4 * 3 + 4 + 4 + 1
+    tol = 1e-5 * float(ref.abs().max()) + 1e-6
+    assert float((got.cpu() - ref).abs().max()) <= tol

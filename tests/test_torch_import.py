@@ -39,7 +39,10 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch.data.loader, yolo_tpu_torch.data.transforms\n"
         "import yolo_tpu_torch.training.optim, yolo_tpu_torch.training.trainer\n"
         "import yolo_tpu_torch.training.logging, yolo_tpu_torch.train\n"
-        "import yolo_tpu_torch.bench_train\n"
+        "import yolo_tpu_torch.bench_train, yolo_tpu_torch.serving\n"
+        "import yolo_tpu_torch.serving.cuda_stem, yolo_tpu_torch.serving.cuda_int8\n"
+        "import yolo_tpu_torch.serving.engine, yolo_tpu_torch.serving.export\n"
+        "import yolo_tpu_torch.serving.fold, yolo_tpu_torch.serving.quant\n"
         "assert 'triton' not in sys.modules\n"
         "assert yolo_tpu_torch.YOLOInference is yolo_tpu_torch.inference.YOLOInference\n"
         "print('OK')\n"
@@ -79,7 +82,8 @@ def test_kernel_build_flags():
     from yolo_tpu_torch.utils import kernels
 
     assert (PORT / "csrc" / "nms.cu").is_file()
-    assert [p.name for p in kernels.sources()] == ["fused_bn.cu", "nms.cu"]
+    assert [p.name for p in kernels.sources()] == [
+        "fused_bn.cu", "int8_conv.cu", "nms.cu", "quant_s2d.cu"]
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

@@ -1,11 +1,13 @@
 """yolo_tpu_torch — the YOLOv1 framework ported to PyTorch and CUDA (Hopper).
 
 A second package beside the JAX one (``yolo_tpu``), with the same module
-names. It imports torch and never jax. So far it covers exact inference
-with the ResNet50 model: ``models`` (forward), ``ops.decode``, and per-class
-greedy NMS through the hand-written CUDA kernel ``csrc/nms.cu``
-(``ops.cuda_nms``), driven by ``inference.YOLOInference`` and the
-``predict`` CLI.
+names. It imports torch and never jax. So far it covers the ResNet50
+model's exact inference (``models``, ``ops.decode``, NMS through the
+hand-written CUDA kernel ``csrc/nms.cu``), its training (``training``,
+``data``, the fused-BN kernels ``csrc/fused_bn.cu``) and its int8 serving
+engine (``serving``, the kernels ``csrc/quant_s2d.cu`` and
+``csrc/int8_conv.cu``), driven by ``inference.YOLOInference`` and the
+``predict`` and ``train`` CLIs.
 
 Importing the package loads nothing else: the names below resolve on first
 use, so PIL, pydantic and the kernel build stay out until needed.

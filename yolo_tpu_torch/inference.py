@@ -1,15 +1,18 @@
 """Inference engine: images -> forward -> decode -> NMS kernel, on one device.
 
-Port of yolo_tpu/inference.py in its exact mode (``optimize=None``, with
-``nms_impl="pallas"``): the same ``predict`` / ``predict_batch_arrays`` /
-``predict_batch_files`` / ``parse_predictions`` / ``iou`` /
-``non_max_suppression`` surface. A batch runs forward, decode and NMS on the
-engine's device, and only the fixed-shape ``Detections`` cross to the host.
-On CUDA, NMS is the hand-written kernel (ops/cuda_nms.py); on the CPU, its
-plain twin. It runs eagerly.
+Port of yolo_tpu/inference.py (with ``nms_impl="pallas"``): the same
+``predict`` / ``predict_batch_arrays`` / ``predict_batch_files`` /
+``parse_predictions`` / ``iou`` / ``non_max_suppression`` surface. A batch
+runs forward, decode and NMS on the engine's device, and only the
+fixed-shape ``Detections`` cross to the host. On CUDA, NMS is the
+hand-written kernel (ops/cuda_nms.py); on the CPU, its plain twin. It runs
+eagerly.
 
-The int8 engine (``optimize="int8"``, saved engine artifacts) is not ported
-yet.
+``optimize="int8"`` serves with the int8 engine (serving/engine.py:
+BN-folded, per-channel-quantized weights, calibrated activation scales, the
+stem-front and int8-conv kernels), built from ``calibration`` batches, or
+lazily from the first predicted batch, or loaded from an ``engine_artifact``
+(serving/export.py). The Winograd convs (``wino=``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,25 +38,53 @@ class YOLOInference:
             "cpu"). The model is moved there, put in eval mode, and on CUDA
             kept in channels_last memory.
         image_size: input resolution the model was built for (448).
+        optimize: None (the exact float32 forward) or "int8" (the int8
+            serving engine, serving/).
+        calibration: optional iterable of normalized (n, H, W, 3) image
+            batches for the int8 activation scales. Without it the engine
+            calibrates on the first batch it predicts (its real rows only).
+        engine_artifact: path of a saved int8 engine (.npz, from
+            :meth:`save_engine` or the JAX package's ``save_engine``) to
+            serve instead of calibrating; needs ``optimize="int8"``.
 
     Example:
         >>> engine = YOLOInference(model, "cuda")
         >>> detections = engine.predict("image.jpg", conf_threshold=0.25)
     """
 
+    #: Minimum images the activation-scale calibration must have seen before
+    #: the int8 engine may be frozen to an artifact without ``force``.
+    MIN_CALIB_IMAGES = 8
+
     def __init__(self, model: torch.nn.Module, device: torch.device | str,
-                 image_size: int = 448):
+                 image_size: int = 448, optimize: str | None = None, calibration=None,
+                 engine_artifact: str | None = None, wino=()):
+        if optimize not in (None, "int8"):
+            raise ValueError(f"optimize must be None or 'int8', got {optimize!r}")
+        if engine_artifact is not None and optimize != "int8":
+            raise ValueError("engine_artifact requires optimize='int8'")
+        if wino:
+            raise NotImplementedError("the Winograd int8 convs (wino=) are not yet ported")
         self.device = torch.device(device)
         model = model.to(self.device).eval()
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model
         self.image_size = image_size
+        self._int8_state: dict = {}
+        self._run = self._exact
+        if optimize == "int8":
+            self._run = (self._load_int8_artifact(engine_artifact) if engine_artifact
+                         else self._build_int8(calibration))
 
     @torch.inference_mode()
     def _predict_batch(self, images, conf_threshold: float,
                        nms_threshold: float) -> Detections:
-        images = torch.as_tensor(images, device=self.device)
+        return self._run(torch.as_tensor(images, device=self.device), conf_threshold,
+                         nms_threshold)
+
+    def _exact(self, images: torch.Tensor, conf_threshold: float,
+               nms_threshold: float) -> Detections:
         if images.dtype == torch.uint8:
             # uint8 wire format: raw resized RGB, normalized on the device.
             images = device_normalize(images)
@@ -64,6 +95,86 @@ class YOLOInference:
         m = self.model
         dets = decode_predictions(preds.float(), m.S, m.B, m.num_classes, conf_threshold)
         return nms(dets, nms_threshold)
+
+    # --------------------------------------------------------------- int8 engine
+    def _build_int8(self, calibration):
+        from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl
+
+        state = self._int8_state
+        if calibration is not None:
+            # Materialized first, so that a generator still counts its images.
+            calibration = [torch.as_tensor(b, device=self.device) for b in calibration]
+            fn, q = build_int8_predict(self.model, calibration, impl=default_impl())
+            state.update(fn=fn, q=q, n_calib=sum(int(b.shape[0]) for b in calibration))
+            return lambda images, conf, nms_t: fn(q, images, conf, nms_t)
+
+        # No calibration data: calibrate on the first batch predicted, real
+        # images only ("pending_valid" rows of it, where predict_batch_files
+        # says so), since real-image maxima can exceed those of noise.
+        def lazy_predict(images, conf, nms_t):
+            valid = state.pop("pending_valid", None)
+            if "fn" not in state:
+                n_calib = int(images.shape[0] if valid is None else valid)
+                if n_calib < self.MIN_CALIB_IMAGES:
+                    warnings.warn(
+                        f"int8 engine calibrating activation scales on the first predict"
+                        f" batch of only {n_calib} image(s); scales are pinned for the"
+                        f" engine's lifetime and a small or unrepresentative batch can"
+                        f" underestimate activation maxima (clipping). Pass calibration="
+                        f"[batches] to YOLOInference for deployment-grade scales.",
+                        stacklevel=3,
+                    )
+                calib = images[:n_calib]
+                calib = device_normalize(calib) if calib.dtype == torch.uint8 else calib
+                state["fn"], state["q"] = build_int8_predict(
+                    self.model, [calib.to(torch.float32)], impl=default_impl())
+                state["n_calib"] = n_calib
+            return state["fn"](state["q"], images, conf, nms_t)
+
+        return lazy_predict
+
+    def _load_int8_artifact(self, path):
+        """Serve a saved engine: no fold and no calibration."""
+        from yolo_tpu_torch.serving.engine import default_impl, make_int8_engine_fn, to_device
+        from yolo_tpu_torch.serving.export import load_engine
+
+        q, meta = load_engine(path)
+        for attr in ("S", "B", "num_classes"):
+            if getattr(self.model, attr) != meta[attr]:
+                raise ValueError(
+                    f"engine artifact {path} was exported for {attr}={meta[attr]} but the"
+                    f" model has {getattr(self.model, attr)}")
+        q = to_device(q, self.device)
+        fn = make_int8_engine_fn(meta["S"], meta["B"], meta["num_classes"], impl=default_impl())
+        self._int8_state.update(fn=fn, q=q)
+        return lambda images, conf, nms_t: fn(q, images, conf, nms_t)
+
+    def save_engine(self, path, force: bool = False) -> None:
+        """Freeze the built int8 engine's q-params to ``path`` (.npz).
+
+        Needs ``optimize="int8"`` and a built engine (calibration given, an
+        artifact loaded, or one batch predicted). An engine calibrated on
+        fewer than ``MIN_CALIB_IMAGES`` images is refused unless ``force``:
+        its scales would bake unrepresentative maxima into every deployment.
+        An engine loaded from an artifact is exempt.
+        """
+        if "q" not in self._int8_state:
+            raise RuntimeError(
+                "no built int8 engine to save: construct with optimize='int8' and either"
+                " pass calibration= or run one predict batch first (lazy calibration)")
+        n_calib = self._int8_state.get("n_calib")
+        if not force and n_calib is not None and n_calib < self.MIN_CALIB_IMAGES:
+            raise RuntimeError(
+                f"refusing to freeze an int8 engine calibrated on only {n_calib} image(s)"
+                f" (< {self.MIN_CALIB_IMAGES}): the activation scales would bake"
+                f" unrepresentative maxima into the deployment artifact. Pass"
+                f" calibration=[batches] with >= {self.MIN_CALIB_IMAGES} representative"
+                f" images (or predict a larger first batch), or call"
+                f" save_engine(path, force=True) to override.")
+        from yolo_tpu_torch.serving.export import save_engine as _save
+
+        m = self.model
+        _save(path, self._int8_state["q"], S=m.S, B=m.B, num_classes=m.num_classes)
 
     # ------------------------------------------------------------------- images
     def load_image(self, image_path: str):
@@ -122,13 +233,20 @@ class YOLOInference:
         Per-image results are identical to calling ``predict`` on each file.
         """
         results: List[List] = []
-        for start in range(0, len(image_paths), batch_size):
-            chunk = image_paths[start:start + batch_size]
-            batch = np.stack([self._transform(self.load_image(str(p))) for p in chunk])
-            dets = _to_host(self._predict_batch(batch, conf_threshold, nms_threshold))
-            results.extend(
-                self._to_detections(dets, i, class_names) for i in range(len(chunk))
-            )
+        try:
+            for start in range(0, len(image_paths), batch_size):
+                chunk = image_paths[start:start + batch_size]
+                batch = np.stack([self._transform(self.load_image(str(p))) for p in chunk])
+                # Tells a pending lazy int8 calibration how many rows are
+                # real images (a chunk is never padded here, but the count
+                # is the contract of the JAX engine).
+                self._int8_state["pending_valid"] = len(chunk)
+                dets = _to_host(self._predict_batch(batch, conf_threshold, nms_threshold))
+                results.extend(
+                    self._to_detections(dets, i, class_names) for i in range(len(chunk))
+                )
+        finally:
+            self._int8_state.pop("pending_valid", None)
         return results
 
     def parse_predictions(

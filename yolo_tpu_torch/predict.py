@@ -5,8 +5,10 @@ Single-image or directory prediction with annotated ``{stem}_pred{suffix}``
 outputs and a console summary. ``--device`` defaults to ``cuda`` and fails
 when CUDA is absent; ``--device cpu`` runs the plain torch path. The
 checkpoint is a reference ``.pth`` or a JAX ``.ckpt``; the ResNet's depth and
-input size are read from its weights. The int8 engine flags are not ported
-yet and exit with a message.
+input size are read from its weights. ``--int8`` serves with the int8 engine
+(calibrated on the first chunk of real images), ``--engine`` loads a saved
+engine artifact (the JAX package's or the port's), ``--save-engine`` freezes
+the calibrated engine after serving.
 """
 
 from __future__ import annotations
@@ -29,11 +31,22 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--backbone", default="resnet", choices=["resnet", "yolov1"])
-    p.add_argument("--int8", action="store_true", help="not yet ported")
-    p.add_argument("--engine", default=None, help="not yet ported")
-    p.add_argument("--save-engine", default=None, help="not yet ported")
-    p.add_argument("--force-save-engine", action="store_true", help="not yet ported")
+    p.add_argument("--int8", action="store_true",
+                   help="serve with the int8-resident engine (resnet only)")
+    p.add_argument("--engine", default=None,
+                   help="load a saved int8 engine artifact (.npz from --save-engine or "
+                        "the JAX package's serving.export) instead of calibrating; "
+                        "implies --int8")
+    p.add_argument("--save-engine", default=None,
+                   help="after serving, freeze the calibrated int8 engine to this .npz "
+                        "(deployment artifact; implies --int8)")
+    p.add_argument("--force-save-engine", action="store_true",
+                   help="allow --save-engine even when calibration saw fewer than 8 "
+                        "images (e.g. a single --image run); the frozen activation "
+                        "scales may clip on real data")
     args = p.parse_args(argv)
+    if args.engine or args.save_engine:
+        args.int8 = True
     if bool(args.image) == bool(args.image_dir):
         p.error("Provide exactly one of --image or --image-dir")
     return args
@@ -47,8 +60,6 @@ def load_engine(args):
     from yolo_tpu_torch.models import create_model
     from yolo_tpu_torch.training.checkpoints import load_state_dict
 
-    if args.int8 or args.engine or args.save_engine or args.force_save_engine:
-        raise SystemExit("the int8 engine (--int8/--engine/--save-engine) is not yet ported")
     if args.backbone != "resnet":
         raise SystemExit(f"backbone {args.backbone!r} is not yet ported")
     device = torch.device(args.device)
@@ -63,7 +74,8 @@ def load_engine(args):
         stage_sizes=stage_sizes, image_size=image_size,
     )
     model.load_state_dict(state_dict)
-    return YOLOInference(model, device, image_size=image_size)
+    return YOLOInference(model, device, image_size=image_size,
+                         optimize="int8" if args.int8 else None, engine_artifact=args.engine)
 
 
 def report_and_save(engine, image_path: Path, detections, out_dir: Path,
@@ -84,6 +96,19 @@ def report_and_save(engine, image_path: Path, detections, out_dir: Path,
     return detections
 
 
+def _save_engine_cli(engine, args):
+    """--save-engine, with the calibration-count gate turned into CLI guidance."""
+    try:
+        engine.save_engine(args.save_engine, force=args.force_save_engine)
+    except RuntimeError as exc:
+        raise SystemExit(
+            f"{exc}\nCLI guidance: run with --image-dir over >="
+            f" {type(engine).MIN_CALIB_IMAGES} representative images so the engine"
+            f" calibrates on a full chunk, or pass --force-save-engine to freeze anyway."
+        )
+    print(f"int8 engine artifact saved to {args.save_engine}")
+
+
 def main(argv=None):
     from yolo_tpu_torch.data import VOC_CLASSES
 
@@ -97,6 +122,8 @@ def main(argv=None):
             nms_threshold=args.nms_threshold, class_names=VOC_CLASSES,
         )
         report_and_save(engine, Path(args.image), dets, out_dir, args.conf_threshold)
+        if args.save_engine:
+            _save_engine_cli(engine, args)
         return
 
     image_dir = Path(args.image_dir)
@@ -115,6 +142,8 @@ def main(argv=None):
     for path, dets in zip(paths, all_dets):
         report_and_save(engine, path, dets, out_dir, args.conf_threshold)
         total += len(dets)
+    if args.save_engine:
+        _save_engine_cli(engine, args)
     print(
         f"\nProcessed {len(paths)} images, {total} detections "
         f"({total / len(paths):.1f} per image)"

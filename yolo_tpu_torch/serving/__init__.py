@@ -1,0 +1,34 @@
+"""The int8 serving engine on the card (port of yolo_tpu/serving/).
+
+- ``fold``: BN folding -> flat eval-time parameters (JAX layout), and the
+  float forward on them (the calibration oracle);
+- ``quant``: post-training int8 quantization and requant constants;
+- ``cuda_stem``: quantize + space-to-depth stem front, kernel
+  ``csrc/quant_s2d.cu``;
+- ``cuda_int8``: int8 conv + requant, kernel ``csrc/int8_conv.cu``;
+- ``engine``: the int8-resident forward with the decode + NMS tail;
+- ``export``: ``.npz`` engine artifacts, interchangeable with the JAX
+  package's.
+
+Serving mode is opt-in: ``YOLOInference(..., optimize="int8")``. The request
+batcher, the HTTP server, the sharded engine, the Winograd convs and the AOT
+artifact are not ported yet.
+"""
+
+from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward, make_int8_engine_fn
+from yolo_tpu_torch.serving.export import load_engine, save_engine
+from yolo_tpu_torch.serving.fold import fold_flagship, folded_forward
+from yolo_tpu_torch.serving.quant import ACT_POINTS, calibrate_activations, quantize_folded
+
+__all__ = [
+    "ACT_POINTS",
+    "build_int8_predict",
+    "calibrate_activations",
+    "fold_flagship",
+    "folded_forward",
+    "int8_forward",
+    "load_engine",
+    "make_int8_engine_fn",
+    "quantize_folded",
+    "save_engine",
+]
