@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at full width (ResNet50 YOLOv1, 448x448, 20
+Drives the port's paths at full width (ResNet50 YOLOv1, 448x448, 20
 classes, random weights from a seed): inference (forward -> decode ->
 per-class greedy NMS through the hand-written CUDA kernel, float32),
 training (Trainer.train_step with the train-mode BatchNorm through the four
-hand-written fused-BN kernels) and int8 serving (fold -> calibrate ->
+hand-written fused-BN kernels), int8 serving (fold -> calibrate ->
 quantize -> the quantize+space-to-depth stem kernel and the int8 conv +
-requant kernel for every conv -> decode -> NMS). Phases:
+requant kernel for every conv -> decode -> NMS), and int8 serving with the
+stage-chain hooks (each stage's stride-1 bottlenecks through the fused
+chain kernel, or each identity block through the fused bottleneck kernel).
+Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
@@ -55,7 +58,22 @@ requant kernel for every conv -> decode -> NMS). Phases:
    engine gives identical detections; the predict CLI with --int8
    --save-engine, then --engine;
 13. timing (information only): int8 and fp32 img/s at batch 1, 16, 64 and
-   256, the idle share, and each kernel's share of device time.
+   256, the idle share, and each kernel's share of device time;
+14. fused bottleneck kernels vs plain twins: at each stage's full-width
+   chain geometry (seeded q-params), batch 2 and 16, the chain kernel on the
+   stage's whole chain (layer1's downsample block included) and the block
+   kernel on the stage's identity block, bit for bit against the twins on
+   the card; kernel, twin and per-conv (int8 conv kernel) times beside the
+   bound; resident blocks against tiles at batch 1;
+15. stage-chain slice: build_int8_predict with impl["layer1".."layer4"] =
+   chain_int8 on the phase-12 model: one served batch launches the stem
+   kernel once, the conv kernel 18 times and the chain kernel 4 times
+   (counts zeroed just before); its grid equals the default engine's bit for
+   bit and its keep masks are equal; then every identity block through
+   block_int8 (1 / 22 / 12 launches), the same grid; then
+   python -m yolo_tpu_torch.bench_int8 --variants int8,chain;
+16. timing (information only): default vs chained int8 img/s at batch 1,
+   16, 64 and 256, in turns, with the idle share.
 
 Any failure raises and exits nonzero. The last lines are the kernels' JSON
 record, the card line, and {"ok": true, "device": {...}}. Needs one CUDA
@@ -1260,6 +1278,220 @@ def phase_int8_timing(engine, model, thr: float, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 14
+# (stage, H = W, Cin, C, P, blocks in the chain, first block has a downsample)
+CHAINS = (("layer1", 112, 64, 256, 64, 3, True), ("layer2", 56, 512, 512, 128, 3, False),
+          ("layer3", 28, 1024, 1024, 256, 5, False), ("layer4", 14, 2048, 2048, 512, 2, False))
+
+
+def _rand_qblock(g, cin: int, c: int, p: int, ds: bool) -> dict:
+    """Seeded q-params of one bottleneck on the card, as engine.to_device
+    returns them; m and t scale each accumulator to about +-130."""
+    import torch
+
+    from yolo_tpu_torch.serving.engine import to_device
+
+    def conv(k, ci, co):
+        return {"wq": torch.randint(-127, 128, (k, k, ci, co), generator=g, device="cuda",
+                                    dtype=torch.int8),
+                "m": (torch.rand(co, generator=g, device="cuda") + 0.5)
+                / float(40 * np.sqrt(k * k * ci)),
+                "t": torch.rand(co, generator=g, device="cuda") * 6 - 3}
+
+    qb = {"conv1": conv(1, cin, p), "conv2": conv(3, p, p), "conv3": conv(1, p, c),
+          "downsample": conv(1, cin, c) if ds else None}
+    r = torch.tensor(0.7 if ds else 0.9, device="cuda")
+    qb.update({"ds_rescale": r, "rx": None} if ds else {"rx": r})
+    return to_device(qb, "cuda")
+
+
+def _per_conv(x, qblocks):
+    """The same blocks through the per-conv path: one int8 conv kernel launch per conv."""
+    from yolo_tpu_torch.serving.engine import _block
+
+    for qb in qblocks:
+        x = _block(x, qb, 1)
+    return x
+
+
+def phase_chain_kernels(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+
+    g = torch.Generator(device="cuda").manual_seed(51)
+    rand_i8 = lambda shape: torch.randint(  # noqa: E731
+        -127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+    out = {"chain": {}, "block": {}, "chain_err": 0.0, "block_err": 0.0}
+    for stage, h, cin, c, p, nb, ds in CHAINS:
+        qbs = [_rand_qblock(g, cin if b == 0 else c, c, p, ds and b == 0) for b in range(nb)]
+        ident = qbs[1] if ds else qbs[0]  # the stage's identity block, for the block kernel
+        t = cb.pick_tile(h, h)[0]
+        tiles = (-(-h // t)) ** 2
+        cb.chain_int8(rand_i8((1, h, h, cin)), qbs)
+        torch.cuda.synchronize()
+        log(f"[14] {stage} batch 1: the chain kernel keeps {cb.LAST_GRID} thread blocks "
+            f"resident for {tiles} tiles of {t}x{t} on the card's SMs; the block kernel "
+            f"launches {tiles} blocks")
+        for batch in (2, SLICE_BATCH):
+            x, xi = rand_i8((batch, h, h, cin)), rand_i8((batch, h, h, c))
+            checks = (("chain", lambda: cb.chain_int8(x, qbs),
+                       lambda: cb.chain_int8_reference(x, qbs)),
+                      ("block", lambda: cb.block_int8(xi, ident),
+                       lambda: cb.block_int8_reference(xi, ident)))
+            for name, kernel, twin in checks:
+                got, ref = kernel(), twin()
+                grid = cb.LAST_GRID
+                err = float((got.int() - ref.int()).abs().max())
+                out[f"{name}_err"] = max(out[f"{name}_err"], err)
+                if got.shape != ref.shape or not torch.equal(got, ref):
+                    raise AssertionError(f"{name} kernel at {stage}, batch {batch}, differs from "
+                                         f"its twin in {int((got != ref).sum())} values")
+            log(f"[14] {stage} batch {batch}: chain of {nb} blocks ({cin}->{c}, P {p}, "
+                f"{h}x{h}; {grid} resident thread blocks) and its identity block == twins "
+                f"bit for bit")
+            del got, ref
+        # Times at the slice's batch: kernel, twin (float64 conv) and the per-conv
+        # path (3 or 4 int8 conv kernel launches per block) on the same inputs.
+        for name, blocks, xin, cin_ in (("chain", qbs, x, cin), ("block", [ident], xi, c)):
+            kernel = (lambda: cb.chain_int8(xin, blocks)) if name == "chain" else (
+                lambda: cb.block_int8(xin, blocks[0]))
+            k_ms = cuda_ms(kernel, iters=10)
+            conv_ms = cuda_ms(lambda: _per_conv(xin, blocks), iters=10)
+            p_ms = cuda_ms(lambda: cb.chain_int8_reference(xin, blocks), iters=2, warmup=1)
+            ops, n_bytes = cb.work(SLICE_BATCH, h, h, cin_, c, p, len(blocks),
+                                   blocks[0]["downsample"] is not None)
+            b_ms, b_by = bound(n_bytes, ops, INT8_OPS_S)
+            out[name][stage] = (k_ms, p_ms, b_ms, b_by, conv_ms, ops)
+            log(f"[14] {card}: {name} kernel, {stage}, {len(blocks)} block(s), batch "
+                f"{SLICE_BATCH}: {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOPS; bound {b_ms:.4f} ms "
+                f"by {b_by}, {100 * b_ms / k_ms:.1f}%); per-conv path {conv_ms:.4f} ms "
+                f"(fused / per-conv {k_ms / conv_ms:.3f}); twin {p_ms:.2f} ms; library: none "
+                f"(no PyTorch call computes a fused int8 bottleneck)")
+        del qbs, ident, x, xi
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 15
+def _chain_counts():
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_stem
+
+    return (cuda_stem.LAUNCHES, cuda_int8.LAUNCHES, cuda_bottleneck.LAUNCHES["chain"],
+            cuda_bottleneck.LAUNCHES["bottleneck"], cuda_nms.LAUNCHES)
+
+
+def _zero_chain_counts():
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_stem
+
+    cuda_stem.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
+    cuda_bottleneck.LAUNCHES.update(chain=0, bottleneck=0)
+
+
+def phase_chain_slice(model):
+    import torch
+
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.ops.decode import decode_predictions
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+    from yolo_tpu_torch.serving.engine import (_block, build_int8_predict, default_impl,
+                                               int8_forward, make_int8_engine_fn)
+
+    dev = torch.device("cuda")
+    r = np.random.default_rng(43)
+    calib = [device_normalize(torch.from_numpy(
+        r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)) for _ in range(2)]
+    layers = [f"layer{i}" for i in range(1, 5)]
+    chain_impl = {**default_impl(), **{name: cb.chain_int8 for name in layers}}
+    chained, q = build_int8_predict(model, calib, impl=chain_impl)
+    default = make_int8_engine_fn(S, B, C, impl=default_impl())
+    images = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
+    with torch.inference_mode():
+        want = int8_forward(q, images, S=S, impl=default_impl())
+    thr = float(decode_predictions(want, S, B, C, float("-inf")).scores.float().median())
+    ref = default(q, images, thr, IOU_T)
+
+    def blocks_hook(x, qblocks):
+        """Identity blocks one launch each; layer1's downsample block on _block."""
+        for qb in qblocks:
+            x = cb.block_int8(x, qb) if qb["downsample"] is None else _block(x, qb, 1)
+        return x
+
+    blocks_impl = {**default_impl(), **{name: blocks_hook for name in layers}}
+    runs = (("chains on layers 1-4", chained, chain_impl, (1, 18, 4, 0)),
+            ("identity blocks via block_int8", make_int8_engine_fn(S, B, C, impl=blocks_impl),
+             blocks_impl, (1, 22, 0, 12)))
+    launches = {}
+    for name, fn, impl, expect in runs:
+        _zero_chain_counts()
+        dets = fn(q, images, thr, IOU_T)
+        torch.cuda.synchronize()
+        launches[name] = _chain_counts()
+        if launches[name][:4] != expect or launches[name][4] < 1:
+            raise AssertionError(f"{name}: launches stem/conv/chain/block/NMS "
+                                 f"{launches[name]}, expected {expect} and NMS")
+        with torch.inference_mode():
+            grid = int8_forward(q, images, S=S, impl=impl)
+        if not torch.equal(grid, want):
+            raise AssertionError(f"{name}: grid differs from the default int8 engine's by up "
+                                 f"to {float((grid - want).abs().max())}")
+        if not all(torch.equal(a, b) for a, b in zip(dets, ref)):
+            raise AssertionError(f"{name}: detections differ from the default int8 engine's")
+        log(f"[15] {name}, batch {SLICE_BATCH}: launches stem {launches[name][0]}, int8 conv "
+            f"{launches[name][1]}, chain {launches[name][2]}, block {launches[name][3]}, NMS "
+            f"{launches[name][4]}; grid == the default int8 engine's bit for bit; "
+            f"{int(dets.valid.sum())} kept, keep masks and detections equal")
+
+    cmd = [sys.executable, "-m", "yolo_tpu_torch.bench_int8", "--batch", str(SLICE_BATCH),
+           "--variants", "int8,chain", "--chain-stages", "1,2,3,4"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_int8 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[15]   {line}")
+    log(f"[15] python -m yolo_tpu_torch.bench_int8 {' '.join(cmd[3:])}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return chained, default, q, thr, launches
+
+
+# ---------------------------------------------------------------- phase 16
+def phase_chain_timing(chained, default, q, thr: float, card: str) -> None:
+    import torch
+
+    r = np.random.default_rng(53)
+    for batch in (1, 16, 64, 256):
+        images = torch.from_numpy(
+            r.integers(0, 256, size=(batch, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
+        rates = {}
+        for name, fn in (("default", default), ("chained", chained), ("chained again", chained),
+                         ("default again", default)):
+            ms = cuda_ms(lambda: fn(q, images, thr, IOU_T), iters=3 if batch == 256 else 10,
+                         warmup=2)
+            rates[name] = (ms, batch * 1000.0 / ms)
+        log(f"[16] {card}: batch {batch}: " + "; ".join(
+            f"{k} {ms:.3f} ms/batch, {v:.1f} img/s" for k, (ms, v) in rates.items())
+            + " (CUDA events around the engine's predict on uint8 images on the card)")
+        for name, fn in (("default", default), ("chained", chained)):
+            per_kernel, wall = profile_kernels(lambda: fn(q, images, thr, IOU_T), iters=2)
+            busy = sum(per_kernel.values())
+            if not busy > 0:
+                log(f"[16]   {name}, batch {batch}: device busy {profiled(busy)}")
+                continue
+            ms = min(rates[name][0], rates[f"{name} again"][0])
+            share = {k: sum(v for n, v in per_kernel.items() if body in n) for k, body in
+                     (("chain", "int8_chain_kernel"), ("int8 conv", "int8_conv_kernel"))}
+            log(f"[16]   {name}, batch {batch}: device busy {busy:.3f} ms per batch (idle "
+                f"{100 * max(0.0, 1 - busy / ms):.1f}% of the faster CUDA-event time; "
+                f"{wall:.3f} ms wall under torch.profiler); " + ", ".join(
+                    f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in share.items()))
+        del images
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not (REPO / "yolo_tpu_torch" / "csrc" / "nms.cu").is_file():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1291,7 +1523,12 @@ def main() -> None:
     i8k = timed(11, phase_int8_kernels, card)
     engine, model, thr, i8_launches = timed(12, phase_int8_slice)
     timed(13, phase_int8_timing, engine, model, thr, card)
-    del engine, model
+    del engine
+    torch.cuda.empty_cache()
+    ck = timed(14, phase_chain_kernels, card)
+    chained, default, q, thr, ch_launches = timed(15, phase_chain_slice, model)
+    timed(16, phase_chain_timing, chained, default, q, thr, card)
+    del chained, default, q, model
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
 
     k_ms, p_ms, b_ms, b_by = kv["timings"][(SLICE_BATCH, 98)]
@@ -1361,6 +1598,25 @@ def main() -> None:
         "bound_by": b_by,
         "library_ms": lib_ms,
     })
+    # The fused kernels at layer1 (the chain with its downsample block; the
+    # block kernel on an identity block), batch 16; launches per served batch.
+    for name, key, line, count in (
+            ("int8_bottleneck", "block", 49, ch_launches["identity blocks via block_int8"][3]),
+            ("int8_chain", "chain", 253, ch_launches["chains on layers 1-4"][2])):
+        k_ms, p_ms, b_ms, b_by, _, _ = ck[key]["layer1"]
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "yolo_tpu_torch/csrc/int8_bottleneck.cu",
+            "replaces": f"yolo_tpu/serving/pallas_int8.py:{line}",
+            "launches": count,
+            "max_abs_err": ck[f"{key}_err"],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

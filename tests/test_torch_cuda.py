@@ -1,5 +1,6 @@
-"""The CUDA kernels (NMS, the four fused-BN kernels, the int8 stem front and
-the int8 conv) against their plain twins, on the card.
+"""The CUDA kernels (NMS, the four fused-BN kernels, the int8 stem front, the
+int8 conv and the fused int8 bottleneck and stage chain) against their plain
+twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU and nvcc, and skip without
 them. Run them on the GPU machine with
@@ -296,3 +297,122 @@ def test_int8_engine_on_the_card_equals_the_cpu_engine(device):
     assert cuda_int8.LAUNCHES - conv0 == 1 + 4 * 3 + 4 + 4 + 1
     tol = 1e-5 * float(ref.abs().max()) + 1e-6
     assert float((got.cpu() - ref).abs().max()) <= tol
+
+
+# ------------------------------------------------------- fused bottlenecks
+def random_qblock(seed, cin, c, p, ds=False):
+    """Seeded q-params of one bottleneck block in the engine's layout (numpy):
+    int8 HWIO weights, float32 m and t that scale each accumulator to about
+    +-130 (so the rounding, the ReLU and both clips occur), and rx, or the
+    downsample projection with ds_rescale."""
+    r = np.random.default_rng(seed)
+
+    def conv(k, ci, co):
+        return {"wq": r.integers(-127, 128, size=(k, k, ci, co), dtype=np.int8),
+                "m": (r.uniform(0.5, 1.5, co) / (40 * np.sqrt(k * k * ci))).astype(np.float32),
+                "t": r.uniform(-3, 3, co).astype(np.float32)}
+
+    qb = {"conv1": conv(1, cin, p), "conv2": conv(3, p, p), "conv3": conv(1, p, c),
+          "downsample": conv(1, cin, c) if ds else None}
+    if ds:
+        qb["ds_rescale"], qb["rx"] = np.float32(0.7), None
+    else:
+        qb["rx"] = np.float32(0.9)
+    return qb
+
+
+def _on(qb, device):
+    from yolo_tpu_torch.serving.engine import to_device
+
+    return to_device(qb, device)
+
+
+def _x(seed, shape):
+    return torch.from_numpy(np.random.default_rng(seed).integers(-127, 128, size=shape,
+                                                                 dtype=np.int8))
+
+
+# (N, H, W, C, P): ragged tiles (H, W not multiples of the tile), both tile
+# sizes, and the widths of layer1 and layer2.
+BLOCK_CASES = [(2, 12, 10, 64, 64), (1, 14, 14, 128, 64), (3, 8, 9, 256, 64),
+               (2, 7, 7, 512, 128)]
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_bottleneck_kernel_equals_plain_twin(device, case):
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+
+    n, h, w, c, p = case
+    qb = random_qblock(sum(case), c, c, p)
+    x = _x(1, (n, h, w, c))
+    ref = cb.block_int8_reference(x, _on(qb, "cpu"))
+    before = cb.LAUNCHES["bottleneck"]
+    got = cb.block_int8(x.to(device), _on(qb, device))
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["bottleneck"] == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+# (N, H, W, Cin, C, P, blocks, downsample): a ds first block (layer1's
+# shape class), identity chains, one block, and a chain of 512 tiles, more
+# than the card holds at once (2 thread blocks an SM), so that resident
+# blocks each walk several tiles between grid barriers.
+CHAIN_CASES = [(2, 12, 10, 64, 256, 64, 3, True), (2, 9, 9, 128, 128, 64, 2, False),
+               (1, 14, 14, 128, 128, 64, 1, False), (3, 16, 11, 64, 128, 64, 4, True),
+               (2, 7, 7, 256, 256, 128, 3, False), (8, 64, 64, 64, 64, 64, 2, False)]
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_chain_kernel_equals_plain_twin(device, case):
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+
+    n, h, w, cin, c, p, nb, ds = case
+    qbs = [random_qblock(10 * b + nb, cin if b == 0 else c, c, p, ds=ds and b == 0)
+           for b in range(nb)]
+    x = _x(2, (n, h, w, cin))
+    ref = cb.chain_int8_reference(x, [_on(qb, "cpu") for qb in qbs])
+    before = dict(cb.LAUNCHES)
+    got = cb.chain_int8(x.to(device), [_on(qb, device) for qb in qbs])
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == {**before, "chain": before["chain"] + 1}
+    tiles = n * -(-h // cb.pick_tile(h, w)[0]) * -(-w // cb.pick_tile(h, w)[1])
+    assert 0 < cb.LAST_GRID <= tiles
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_bottleneck_kernels_reject_what_they_do_not_take(device):
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+
+    qb = _on(random_qblock(0, 32, 32, 64), device)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cb.block_int8(_x(0, (1, 8, 8, 32)).to(device), qb)
+    qb = _on(random_qblock(0, 64, 64, 64), device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.chain_int8(_x(0, (1, 8, 8, 64)).to(device).permute(0, 2, 1, 3), [qb])
+    with pytest.raises(ValueError, match="on x's device"):
+        cb.chain_int8(_x(0, (1, 8, 8, 64)).to(device), [_on(random_qblock(0, 64, 64, 64), "cpu")])
+
+
+def test_int8_engine_with_stage_chains_on_the_card(device):
+    """A small int8 engine (2 blocks a stage, 64x64) with the chain kernel on
+    every stage equals the same engine on the card without it, bit for bit,
+    and launches 1 chain per stage and 1 + 3 * 4 + 4 + 1 int8 convs."""
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+    from yolo_tpu_torch.serving import cuda_int8
+    from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl, int8_forward
+
+    model = create_model("resnet", 20, 7, 2, device=device, stage_sizes=(2, 2, 2, 2),
+                         image_size=64, generator=torch.Generator(device=device).manual_seed(0))
+    r = np.random.default_rng(4)
+    calib = torch.from_numpy(r.normal(size=(4, 64, 64, 3)).astype(np.float32)).to(device)
+    _, q = build_int8_predict(model, [calib])
+    images = torch.from_numpy(r.integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8)).to(device)
+    ref = int8_forward(q, images, impl=default_impl())
+    impl = {**default_impl(), **{f"layer{i}": cb.chain_int8 for i in range(1, 5)}}
+    chains, convs = cb.LAUNCHES["chain"], cuda_int8.LAUNCHES
+    got = int8_forward(q, images, impl=impl)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["chain"] - chains == 4
+    assert cuda_int8.LAUNCHES - convs == 1 + 3 * 4 + 4 + 1
+    assert torch.equal(got, ref)

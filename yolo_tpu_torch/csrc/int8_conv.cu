@@ -46,20 +46,20 @@
 //     warp hit 32 different banks;
 //   * the requant runs on the accumulator registers; each thread stores two
 //     neighbouring channels at once.
-// Not done yet (later work): wgmma, TMA, a deeper pipeline, split-K for fc1,
-// fusing a bottleneck's three convs.
+// Not done yet (later work): wgmma, TMA, a deeper pipeline, split-K for fc1.
+// A bottleneck's three convs fused into one kernel are int8_bottleneck.cu.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "int8_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBK = 64;          // K bytes per stage
 constexpr int kRow = kBK + 16;   // shared row stride in bytes (bank spread)
-
-enum Mode { kRelu = 0, kNone = 1, kResidual = 2, kLeaky = 3, kFloat = 4, kAcc = 5 };
 
 struct ConvArgs {
   const int8_t* x;
@@ -72,48 +72,6 @@ struct ConvArgs {
   int N, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad_t, pad_l, K, Kpad, mode;
   long long M;
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const int bytes = ok ? 16 : 0;  // 0: the 16 shared bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], unsigned a0, unsigned a1, unsigned a2,
-                                       unsigned a3, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int8_t q8(float v) {
-  float r = rintf(v);
-  r = fminf(fmaxf(r, -127.0f), 127.0f);
-  return static_cast<int8_t>(__float2int_rn(r));
-}
-
-// One int8 result of the requant epilogue (modes kRelu .. kLeaky).
-__device__ __forceinline__ int8_t requant(int acc, float m, float t, int mode, float res,
-                                          float r) {
-  float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), m), t);
-  if (mode == kResidual) y = __fadd_rn(y, __fmul_rn(res, r));
-  if (mode == kLeaky) {
-    y = y > 0.0f ? y : __fmul_rn(y, 0.1f);
-  } else if (mode != kNone) {
-    y = fmaxf(y, 0.0f);
-  }
-  return q8(y);
-}
 
 // Rows of the A tile a thread loads: its output pixel's image offset and the
 // top-left input coordinate of its receptive field.
@@ -288,9 +246,7 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvArgs a) {
           }
           const int8_t q0 = requant(v0, a.m[col], a.t[col], a.mode, r0, rs);
           const int8_t q1 = requant(v1, a.m[col + 1], a.t[col + 1], a.mode, r1, rs);
-          const uint16_t pair = static_cast<uint16_t>(static_cast<uint8_t>(q0)) |
-                                (static_cast<uint16_t>(static_cast<uint8_t>(q1)) << 8);
-          *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(a.out) + o) = pair;
+          *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(a.out) + o) = pack2(q0, q1);
         }
       }
     }

@@ -6,6 +6,8 @@
 - ``cuda_stem``: quantize + space-to-depth stem front, kernel
   ``csrc/quant_s2d.cu``;
 - ``cuda_int8``: int8 conv + requant, kernel ``csrc/int8_conv.cu``;
+- ``cuda_bottleneck``: fused identity bottlenecks and stage chains, kernels
+  ``csrc/int8_bottleneck.cu`` (the opt-in ``impl["layer1"..]`` hooks);
 - ``engine``: the int8-resident forward with the decode + NMS tail;
 - ``export``: ``.npz`` engine artifacts, interchangeable with the JAX
   package's.
@@ -15,6 +17,7 @@ batcher, the HTTP server, the sharded engine, the Winograd convs and the AOT
 artifact are not ported yet.
 """
 
+from yolo_tpu_torch.serving.cuda_bottleneck import block_int8, chain_int8
 from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward, make_int8_engine_fn
 from yolo_tpu_torch.serving.export import load_engine, save_engine
 from yolo_tpu_torch.serving.fold import fold_flagship, folded_forward
@@ -22,8 +25,10 @@ from yolo_tpu_torch.serving.quant import ACT_POINTS, calibrate_activations, quan
 
 __all__ = [
     "ACT_POINTS",
+    "block_int8",
     "build_int8_predict",
     "calibrate_activations",
+    "chain_int8",
     "fold_flagship",
     "folded_forward",
     "int8_forward",

@@ -1,0 +1,224 @@
+"""Fused int8 bottleneck blocks through the CUDA kernels ``csrc/int8_bottleneck.cu``.
+
+Port of the first half of yolo_tpu/serving/pallas_int8.py:
+
+- :func:`block_int8` (JAX ``block_pallas``) runs one identity bottleneck in
+  one launch of ``yolo_int8_bottleneck`` (TPU kernel
+  ``_fused_identity_bottleneck_kernel``);
+- :func:`chain_int8` (JAX ``chain_pallas``) runs a stage's stride-1
+  bottlenecks, the first of which may carry a stride-1 downsample, in one
+  launch of ``yolo_int8_chain`` (TPU kernel ``_chain_kernel``). It is the
+  stage-chain hook of ``engine.int8_forward`` (``impl["layer1"..]``).
+
+Both compute what ``engine._block`` computes with three (or four) int8 convs;
+their plain twins, :func:`block_int8_reference` and
+:func:`chain_int8_reference`, are ``engine._block`` with the float64 conv
+(``engine.plain_conv``) chained, exact for these integer sums, so the kernels
+equal them bit for bit. The JAX kernels' W padding to 32 columns and their
+``real_w`` argument were a TPU sublane constraint; here a hook takes the
+stage's image as it is.
+
+On CPU tensors the wrappers run the twins. A CUDA tensor never reaches a
+twin: the kernel runs or the call raises. The kernel takes C, P and the
+chain's input channels in multiples of 64 (every full-width stage), int8
+NHWC, 16-byte aligned; anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from yolo_tpu_torch.serving import cuda_int8, engine
+
+#: Kernel launches since the counts were last reset (set each to 0 to reset).
+LAUNCHES = {"bottleneck": 0, "chain": 0}
+#: Thread blocks the last chain launch kept resident (at most one tile each at a time).
+LAST_GRID = 0
+
+ALIGN = 64  # channel granularity of the kernels (K steps and column chunks)
+MAX_CHAIN = 8  # bottlenecks in one chain launch
+PTRS_PER_BLOCK = 13
+TILES = (8, 7)  # square output tiles the kernels take (halo <= 128 pixels)
+
+
+# ------------------------------------------------------------------ twins
+def block_int8_reference(x_q: torch.Tensor, qb: Dict) -> torch.Tensor:
+    """One stride-1 bottleneck through ``engine._block`` with the float64 conv."""
+    return engine._block(x_q, qb, 1, conv=engine.plain_conv)
+
+
+def chain_int8_reference(x_q: torch.Tensor, qblocks: Sequence[Dict]) -> torch.Tensor:
+    """The blocks of a chain, one after the other, through the twin."""
+    for qb in qblocks:
+        x_q = block_int8_reference(x_q, qb)
+    return x_q
+
+
+# ------------------------------------------------------------------ checks
+def _dims(qblocks: Sequence[Dict], cin: int) -> Tuple[int, int]:
+    """(C, P) of a chain; raises on blocks that do not chain as stride-1 bottlenecks."""
+    if not 1 <= len(qblocks) <= MAX_CHAIN:
+        raise ValueError(f"a chain holds 1 to {MAX_CHAIN} blocks, got {len(qblocks)}")
+    p = qblocks[0]["conv1"]["wq"].shape[-1]
+    c = qblocks[0]["conv3"]["wq"].shape[-1]
+    for b, qb in enumerate(qblocks):
+        want = {"conv1": (1, 1, cin if b == 0 else c, p), "conv2": (3, 3, p, p),
+                "conv3": (1, 1, p, c)}
+        if qb["downsample"] is not None:
+            if b > 0:
+                raise ValueError(f"block {b} of a chain carries a downsample; only the "
+                                 f"first may")
+            want["downsample"] = (1, 1, cin, c)
+        elif b == 0 and cin != c:
+            raise ValueError(f"an identity block needs Cin == C, got {cin} -> {c}")
+        for name, shape in want.items():
+            got = tuple(qb[name]["wq"].shape)
+            if got != shape:
+                raise ValueError(f"block {b} {name}: weight {got}, expected {shape}")
+    return c, p
+
+
+def _check(x: torch.Tensor, qblocks: Sequence[Dict]) -> Tuple[int, int]:
+    """Shape checks on any device; on CUDA also what the kernel takes."""
+    if x.dtype != torch.int8 or x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, C) int8, got {x.dtype} {tuple(x.shape)}")
+    c, p = _dims(qblocks, x.shape[3])
+    if x.device.type == "cuda":
+        check_kernel(x, c, p)
+    return c, p
+
+
+def check_kernel(x: torch.Tensor, c: int, p: int) -> None:
+    """Raise unless the CUDA kernels take x (N, H, W, Cin) into C channels via P."""
+    cin = x.shape[3]
+    if cin % ALIGN or c % ALIGN or p % ALIGN:
+        raise ValueError(f"the bottleneck kernels take Cin, C and P in multiples of {ALIGN}, "
+                         f"got {cin}, {c}, {p}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    if min(x.shape[:3]) < 1:
+        raise ValueError(f"x must not be empty, got {tuple(x.shape)}")
+
+
+def pick_tile(h: int, w: int) -> Tuple[int, int]:
+    """The square output tile (8 or 7 pixels a side) that pads the image least."""
+    t = min(TILES, key=lambda t: -(-h // t) * -(-w // t) * t * t)
+    return t, t
+
+
+# ------------------------------------------------------------------ launch
+def _wk(qc: Dict) -> torch.Tensor:
+    return qc["wk"] if "wk" in qc else cuda_int8.pack_weight(qc["wq"])
+
+
+def _block_pointers(qb: Dict, dev, keep: List[torch.Tensor]) -> List[int]:
+    """The 13 device pointers of one block, in the C interface's order."""
+    convs = ["conv1", "conv2", "conv3"] + (["downsample"] if qb["downsample"] is not None else [])
+    wk = {name: _wk(qb[name]) for name in convs}
+    r = qb["rx"] if qb["downsample"] is None else qb["ds_rescale"]
+    floats = [qb[name][k] for name in convs for k in ("m", "t")] + [r]
+    for name, v in wk.items():
+        k = qb[name]["wq"][..., 0].numel()
+        if v.dtype != torch.int8 or tuple(v.shape) != (qb[name]["wq"].shape[-1], k):
+            raise ValueError(f"{name}: packed weight must be ({qb[name]['wq'].shape[-1]}, {k}) "
+                             f"int8, got {v.dtype} {tuple(v.shape)}")
+    for v in [*wk.values(), *floats]:
+        if v.device != dev or not v.is_contiguous():
+            raise ValueError("every q-param of a block must be contiguous and on x's device")
+    if any(v.dtype != torch.float32 for v in floats) or r.numel() != 1:
+        raise ValueError("m, t, rx and ds_rescale must be float32 (rx one value)")
+    keep += [*wk.values(), *floats]
+    ptrs = [wk["conv1"].data_ptr(), wk["conv2"].data_ptr(), wk["conv3"].data_ptr()]
+    ptrs += [v.data_ptr() for v in floats[:6]] + [r.data_ptr()]
+    if "downsample" in wk:
+        ptrs += [wk["downsample"].data_ptr(), floats[6].data_ptr(), floats[7].data_ptr()]
+    return ptrs + [None] * (PTRS_PER_BLOCK - len(ptrs))
+
+
+def _pointer_array(qblocks: Sequence[Dict], dev, keep: List[torch.Tensor]):
+    ptrs = []
+    for qb in qblocks:
+        ptrs += _block_pointers(qb, dev, keep)
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def block_int8(x_q: torch.Tensor, qb: Dict) -> torch.Tensor:
+    """One identity bottleneck: (N, H, W, C) int8 -> (N, H, W, C) int8.
+
+    The kernel ``yolo_int8_bottleneck`` on CUDA tensors;
+    :func:`block_int8_reference` on CPU tensors.
+    """
+    if qb["downsample"] is not None:
+        raise ValueError("block_int8 runs identity blocks; a downsample block is a chain's "
+                         "first block (chain_int8) or engine._block")
+    c, p = _check(x_q, [qb])
+    if x_q.device.type != "cuda":
+        return block_int8_reference(x_q, qb)
+    from yolo_tpu_torch.utils import kernels
+
+    n, h, w, _ = x_q.shape
+    th, tw = pick_tile(h, w)
+    keep: List[torch.Tensor] = []
+    ptrs = _pointer_array([qb], x_q.device, keep)
+    out = torch.empty_like(x_q)
+    lib = kernels.load()
+    with torch.cuda.device(x_q.device):
+        code = lib.yolo_int8_bottleneck(x_q.data_ptr(), out.data_ptr(), ptrs, n, h, w, c, p,
+                                        th, tw, torch.cuda.current_stream().cuda_stream)
+    kernels.check(code, "yolo_int8_bottleneck launch")
+    LAUNCHES["bottleneck"] += 1
+    return out
+
+
+def chain_int8(x_q: torch.Tensor, qblocks: Sequence[Dict]) -> torch.Tensor:
+    """A stage's stride-1 bottlenecks: (N, H, W, Cin) int8 -> (N, H, W, C) int8.
+
+    The first block may carry a stride-1 downsample (layer1's block 0). One
+    launch of ``yolo_int8_chain`` on CUDA tensors; :func:`chain_int8_reference`
+    on CPU tensors.
+    """
+    c, p = _check(x_q, qblocks)
+    if x_q.device.type != "cuda":
+        return chain_int8_reference(x_q, qblocks)
+    from yolo_tpu_torch.utils import kernels
+
+    global LAST_GRID
+    n, h, w, cin = x_q.shape
+    th, tw = pick_tile(h, w)
+    keep: List[torch.Tensor] = []
+    ptrs = _pointer_array(qblocks, x_q.device, keep)
+    out = torch.empty((n, h, w, c), dtype=torch.int8, device=x_q.device)
+    tmp = torch.empty_like(out) if len(qblocks) > 1 else None
+    barrier = torch.empty(1, dtype=torch.int32, device=x_q.device)
+    grid = ctypes.c_int(0)
+    lib = kernels.load()
+    with torch.cuda.device(x_q.device):
+        code = lib.yolo_int8_chain(
+            x_q.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(),
+            barrier.data_ptr(), ptrs, len(qblocks), n, h, w, cin, c, p, th, tw,
+            ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
+    kernels.check(code, "yolo_int8_chain launch")
+    LAUNCHES["chain"] += 1
+    LAST_GRID = grid.value
+    return out
+
+
+# ------------------------------------------------------------------ work
+def work(n: int, h: int, w: int, cin: int, c: int, p: int, nb: int,
+         ds: bool) -> Tuple[int, int]:
+    """(int8 operations, device-memory bytes) of a chain of ``nb`` blocks
+    (a single block: nb = 1): 2 ops per multiply-add of the useful convs;
+    the input read once, the output written once, every weight and
+    per-channel constant read once."""
+    px = n * h * w
+    macs = px * (cin * p + 9 * p * p + p * c) + (nb - 1) * px * (c * p + 9 * p * p + p * c)
+    weights = cin * p + 9 * p * p + p * c + (nb - 1) * (c * p + 9 * p * p + p * c)
+    consts = nb * 4 * (2 * p + 2 * p + 2 * c + 1)
+    if ds:
+        macs += px * cin * c
+        weights += cin * c
+        consts += 4 * 2 * c
+    return 2 * macs, px * cin + px * c + weights + consts

@@ -5,7 +5,9 @@ float, or raw resized uint8 RGB, normalized inside the stem front), are
 quantized once, and stay int8 through the stem, the 16 bottleneck blocks and
 the 4 head convs. Every int8 conv, and int8 fc1, runs through the CUDA
 kernel ``csrc/int8_conv.cu`` (``serving/cuda_int8.py``): an int32
-accumulator and a fused per-channel requant. The stem front (normalize,
+accumulator and a fused per-channel requant; opt-in stage-chain hooks
+(``impl["layer1"..]``, ``serving/cuda_bottleneck.py``) run a stage's
+bottlenecks as fused kernels instead. The stem front (normalize,
 quantize, space-to-depth) is the kernel ``csrc/quant_s2d.cu``
 (``serving/cuda_stem.py``) under :func:`default_impl`, at any batch. The FC
 stack runs in bfloat16 values with float32 sums, and the decode + NMS tail
@@ -102,8 +104,12 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
 
     ``images``: normalized float images, or raw resized uint8 RGB.
     ``impl["stem_front"]`` (see :func:`default_impl`) replaces the eager
-    normalize + space-to-depth + quantize of the s2d stem; ``conv`` runs
-    every int8 conv (:func:`kernel_conv`, or :func:`plain_conv`).
+    normalize + space-to-depth + quantize of the s2d stem;
+    ``impl["layer1"]`` .. ``impl["layer4"]`` run a stage's stride-1 blocks
+    (e.g. ``cuda_bottleneck.chain_int8``, one fused launch per stage; the
+    JAX engine's W padding to 32 columns was a TPU constraint and is gone);
+    ``conv`` runs every other int8 conv (:func:`kernel_conv`, or
+    :func:`plain_conv`).
     """
     impl = impl or {}
     stem = q["stem"]
@@ -123,8 +129,21 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
     x_q = max_pool_int8(x_q)
 
     for si, blocks in enumerate(q["layers"]):
-        for bi, qb in enumerate(blocks):
-            x_q = _block(x_q, qb, 2 if (si > 0 and bi == 0) else 1, conv)
+        # impl[f"layer{i}"] is a stage-chain hook (x_q, qblocks) -> x_q over
+        # the stage's stride-1 blocks (serving/cuda_bottleneck.py::chain_int8).
+        # Stride-2 transition blocks (layers 2-4) stay on ``_block``; layer1's
+        # stride-1 transition, downsample included, is part of its chain.
+        chain_fn = impl.get(f"layer{si + 1}")
+        if chain_fn is None:
+            for bi, qb in enumerate(blocks):
+                x_q = _block(x_q, qb, 2 if (si > 0 and bi == 0) else 1, conv)
+            continue
+        start = 0
+        if si > 0:
+            x_q = _block(x_q, blocks[0], 2, conv)
+            start = 1
+        if start < len(blocks):  # a stage of only its transition has no chain
+            x_q = chain_fn(x_q, blocks[start:])
 
     head = q["head"]
     for i, stride in ((1, 1), (2, 2), (3, 1), (4, 1)):

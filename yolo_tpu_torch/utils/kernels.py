@@ -118,9 +118,13 @@ def load() -> ctypes.CDLL:
         lib.yolo_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
         lib.yolo_quant_s2d.argtypes = [vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp]
         lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 15), vp]
+        ptrs = ctypes.POINTER(vp)
+        lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), vp]
+        lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
+                                        ctypes.POINTER(ci), vp]
         for fn in (lib.yolo_nms, lib.yolo_bn_stats, lib.yolo_bn_normalize,
                    lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx, lib.yolo_quant_s2d,
-                   lib.yolo_int8_conv):
+                   lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain):
             fn.restype = ci
         lib.yolo_cuda_error_string.argtypes = [ci]
         lib.yolo_cuda_error_string.restype = ctypes.c_char_p
