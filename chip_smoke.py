@@ -73,7 +73,23 @@ Phases:
    block_int8 (1 / 22 / 12 launches), the same grid; then
    python -m yolo_tpu_torch.bench_int8 --variants int8,chain;
 16. timing (information only): default vs chained int8 img/s at batch 1,
-   16, 64 and 256, in turns, with the idle share.
+   16, 64 and 256, in turns, with the idle share;
+17. Winograd kernel vs plain twin: at each distinct stride-1 3x3 conv of
+   the full-width engine (seeded q-params), batch 2 and 16, leaky or ReLU
+   as the engine uses them, bit for bit; kernel, twin, direct int8 conv and
+   16 x torch._int_mm times beside the bound; the ablation modes (taps,
+   dots, dots-raw) against their twins at head.conv1 geometry; then
+   python -m yolo_tpu_torch.experiments.wino_ablate at its defaults;
+18. Winograd slice: YOLOInference(optimize="int8", wino=<all 16 convs>) on
+   the phase-12 model: one served batch launches the stem kernel once, the
+   int8 conv kernel 42 times and the Winograd kernel 16 times (counts
+   zeroed just before); its grid equals the same engine's with the twin for
+   every Winograd conv, bit for bit, with equal keep masks, and correlates
+   with the default engine's; save_engine -> a fresh engine reinstalls the
+   hooks and gives identical detections; predict --int8 --engine <it>; then
+   python -m yolo_tpu_torch.bench_int8 --variants int8,wino;
+19. timing (information only): default vs wino (all 16) vs wino
+   (head_conv1, 3, 4) img/s at batch 1, 16, 64 and 256, in turns.
 
 Any failure raises and exits nonzero. The last lines are the kernels' JSON
 record, the card line, and {"ok": true, "device": {...}}. Needs one CUDA
@@ -1492,6 +1508,287 @@ def phase_chain_timing(chained, default, q, thr: float, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 17
+# (name, H = W, C, K, leaky): the distinct stride-1 3x3 convs of the
+# full-width engine (head_conv3 and head_conv4 share a geometry).
+WINO_CONVS = (("layer1 conv2", 112, 64, 64, False), ("layer2 conv2", 56, 128, 128, False),
+              ("layer3 conv2", 28, 256, 256, False), ("layer4 conv2", 14, 512, 512, False),
+              ("head.conv1", 14, 2048, 1024, True), ("head.conv3", 7, 1024, 1024, True))
+
+
+def _rand_qwino(g, c: int, k: int) -> dict:
+    """Seeded Winograd q-params on the card (wino_quantize's layout plus the
+    packed taps): mw scales each output to about +-100, some taps clip."""
+    import torch
+
+    from yolo_tpu_torch.serving.cuda_wino import pack_taps
+
+    uq = torch.randint(-127, 128, (16, c, k), generator=g, device="cuda", dtype=torch.int8)
+    return {"uq": uq, "uk": pack_taps(uq),
+            "mw": (torch.rand((16, 1, k), generator=g, device="cuda") + 0.5) * (6e-3 / c**0.5),
+            "t": torch.rand(k, generator=g, device="cuda") * 6 - 3,
+            "dinv": torch.rand((16, 1, 1), generator=g, device="cuda") * 0.4 + 0.2}
+
+
+def _wino_bound(n: int, h: int, c: int, k: int, mode: str = "full"):
+    from yolo_tpu_torch.serving import cuda_wino
+
+    dots, taps, n_bytes = cuda_wino.work(n, h, h, c, k, mode)
+    return max(bound(n_bytes, dots, INT8_OPS_S), (taps / FP32_FLOPS_S * 1e3, "operations"))
+
+
+def phase_wino_kernels(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch.experiments import wino_ablate
+    from yolo_tpu_torch.serving import cuda_int8, cuda_wino
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    rand_i8 = lambda shape: torch.randint(  # noqa: E731
+        -127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+    out = {"conv": {}, "modes": {}, "err": 0.0, "mode_err": 0.0}
+    for name, h, c, k, leaky in WINO_CONVS:
+        qc = {"wino": _rand_qwino(g, c, k)}
+        for batch in (2, SLICE_BATCH):
+            x = rand_i8((batch, h, h, c))
+            got = cuda_wino.conv3x3_wino(x, qc, leaky)
+            ref = cuda_wino.conv3x3_wino_reference(x, qc, leaky)
+            out["err"] = max(out["err"], float((got.int() - ref.int()).abs().max()))
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                raise AssertionError(f"wino kernel at {name}, batch {batch}, differs from its "
+                                     f"twin in {int((got != ref).sum())} values")
+        # Times at the slice's batch: kernel, twin, the direct int8 conv kernel
+        # on the same conv, and 16 torch._int_mm at the tap-dot shape.
+        k_ms = cuda_ms(lambda: cuda_wino.conv3x3_wino(x, qc, leaky), iters=10)
+        p_ms = cuda_ms(lambda: cuda_wino.conv3x3_wino_reference(x, qc, leaky), iters=2, warmup=1)
+        wq = rand_i8((3, 3, c, k))
+        wk = cuda_int8.pack_weight(wq)
+        m = (torch.rand(k, generator=g, device="cuda") + 0.5) / float(40 * np.sqrt(9 * c))
+        t = torch.rand(k, generator=g, device="cuda") * 6 - 3
+        mode = "leaky" if leaky else "relu"
+        d_ms = cuda_ms(lambda: cuda_int8.conv_int8(x, wq, m, t, 1, 1, mode, wk=wk), iters=10)
+        th, tw = cuda_wino.tiles(h, h)
+        a = rand_i8((SLICE_BATCH * th * tw, c))
+        b = qc["wino"]["uk"][0].t()  # (C, K), column-major
+        lib_ms = cuda_ms(lambda: [torch._int_mm(a, b) for _ in range(16)], iters=5)
+        b_ms, b_by = _wino_bound(SLICE_BATCH, h, c, k)
+        dots, _, _ = cuda_wino.work(SLICE_BATCH, h, h, c, k)
+        out["conv"][name] = (k_ms, p_ms, b_ms, b_by, lib_ms, d_ms)
+        log(f"[17] {card}: wino {name} {h}x{h}, {c}->{k}, {'leaky' if leaky else 'relu'}: == twin "
+            f"bit for bit at batch 2 and {SLICE_BATCH}; batch {SLICE_BATCH}: kernel {k_ms:.4f} ms "
+            f"({dots / k_ms / 1e9:.1f} int8 TOPS of tap dots; bound {b_ms:.4f} ms by {b_by}, "
+            f"{100 * b_ms / k_ms:.1f}%), direct int8 conv kernel {d_ms:.4f} ms (wino / direct "
+            f"{k_ms / d_ms:.3f}), twin {p_ms:.3f} ms, 16 x torch._int_mm ({a.shape[0]}, {c}) x "
+            f"({c}, {k}) {lib_ms:.4f} ms (accumulators only)")
+        del x, got, ref, qc, wq, wk, a
+
+    # The ablation modes at head-conv1 geometry, against their twins.
+    _, h, c, k, _ = WINO_CONVS[4]
+    qw = _rand_qwino(g, c, k)
+    x = rand_i8((SLICE_BATCH, h, h, c))
+    for mode in cuda_wino.MODES:
+        got, ref = cuda_wino.wino_ablate(x, qw, mode), cuda_wino.wino_ablate_reference(x, qw, mode)
+        out["mode_err"] = max(out["mode_err"], float((got.int() - ref.int()).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"wino mode {mode} differs from its twin in "
+                                 f"{int((got != ref).sum())} values")
+        k_ms = cuda_ms(lambda: cuda_wino.wino_ablate(x, qw, mode), iters=10)
+        p_ms = cuda_ms(lambda: cuda_wino.wino_ablate_reference(x, qw, mode), iters=2, warmup=1)
+        b_ms, b_by = _wino_bound(SLICE_BATCH, h, c, k, mode)
+        out["modes"][mode] = (k_ms, p_ms, b_ms, b_by)
+        log(f"[17] {card}: wino mode {mode}, head.conv1 geometry, batch {SLICE_BATCH}: == twin "
+            f"bit for bit; kernel {k_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}), twin "
+            f"{p_ms:.3f} ms")
+    del x, qw
+
+    # The ablation's own entry point at its defaults (batch 256, 14x14,
+    # 1024 -> 1024): the path of the ablation modes, counted.
+    cuda_wino.LAUNCHES.update(dict.fromkeys(cuda_wino.MODES, 0))
+    out["ablation"] = wino_ablate.run()
+    out["ablation_launches"] = dict(cuda_wino.LAUNCHES)
+    if min(out["ablation_launches"].values()) < 1:
+        raise AssertionError(f"wino_ablate launched {out['ablation_launches']}")
+    ab = out["ablation"]
+    log(f"[17] python -m yolo_tpu_torch.experiments.wino_ablate (batch 256): launches "
+        f"{out['ablation_launches']}; full {ab['full']:.4f} ms, taps + dots "
+        f"{ab['taps'] + ab['dots']:.4f} ms (full / (taps + dots) "
+        f"{ab['full'] / (ab['taps'] + ab['dots']):.3f}), dots-raw {ab['dots-raw']:.4f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 18
+def _wino_counts():
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
+
+    return cuda_stem.LAUNCHES, cuda_int8.LAUNCHES, cuda_wino.LAUNCHES["full"], cuda_nms.LAUNCHES
+
+
+def _zero_wino_counts():
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
+
+    cuda_stem.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
+    cuda_wino.LAUNCHES.update(dict.fromkeys(cuda_wino.MODES, 0))
+
+
+def phase_wino_slice(model):
+    import torch
+    from PIL import Image
+
+    from yolo_tpu_torch import predict
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.inference import YOLOInference
+    from yolo_tpu_torch.ops.decode import decode_predictions
+    from yolo_tpu_torch.serving.engine import default_impl, int8_forward, make_int8_engine_fn
+    from yolo_tpu_torch.serving.winograd import (conv3x3_wino_rq, valid_points,
+                                                 wino_impl_hooks, wino_points_of)
+
+    dev = torch.device("cuda")
+    wino = valid_points((3, 4, 6, 3))
+    r = np.random.default_rng(43)
+    calib = [device_normalize(torch.from_numpy(
+        r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)) for _ in range(2)]
+    t0 = time.perf_counter()
+    engine = YOLOInference(model, dev, image_size=SIZE, optimize="int8", calibration=calib,
+                           wino=wino)
+    torch.cuda.synchronize()
+    log(f"[18] wino engine built on {len(wino)} convs ({', '.join(wino)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    q = engine._int8_state["q"]
+    images = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
+    kernel_impl = wino_impl_hooks(wino, default_impl())
+    twin_impl = wino_impl_hooks(wino, default_impl(), conv=conv3x3_wino_rq)
+    with torch.inference_mode():
+        grid = int8_forward(q, images, S=S, impl=kernel_impl)
+        twin_grid = int8_forward(q, images, S=S, impl=twin_impl)
+        default_grid = int8_forward(q, images, S=S, impl=default_impl())
+    thr = float(decode_predictions(grid, S, B, C, float("-inf")).scores.float().median())
+
+    _zero_wino_counts()
+    out = engine.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
+    torch.cuda.synchronize()
+    launches = _wino_counts()
+    if launches[:3] != (1, 42, 16) or launches[3] < 1:
+        raise AssertionError(f"one wino forward must launch stem / int8 conv / wino 1 / 42 / 16 "
+                             f"(and NMS), got {launches}")
+    if not torch.equal(grid, twin_grid):
+        raise AssertionError(f"wino grid differs from the twin path's by up to "
+                             f"{float((grid - twin_grid).abs().max())}")
+    twin = make_int8_engine_fn(S, B, C, impl=twin_impl)(q, images, thr, IOU_T)
+    if not torch.equal(out.valid, twin.valid):
+        raise AssertionError("wino keep masks differ from the twin path's on the card")
+    if tuple(out.boxes.shape) != (SLICE_BATCH, S * S * B, 4) or not bool(
+            torch.isfinite(out.scores).all() and torch.isfinite(out.boxes).all()):
+        raise AssertionError("wino detections: wrong shape or non-finite values")
+    corr = float(np.corrcoef(grid.double().cpu().numpy().ravel(),
+                             default_grid.double().cpu().numpy().ravel())[0, 1])
+    log(f"[18] wino slice, batch {SLICE_BATCH}, threshold {thr:.6g} (median score): launches stem "
+        f"{launches[0]}, int8 conv {launches[1]}, wino {launches[2]}, NMS {launches[3]}; "
+        f"{int(out.valid.sum())} kept; grid == the twin path's bit for bit, keep masks equal; "
+        f"grid vs the default int8 engine's: correlation {corr:.6f}, max |diff| "
+        f"{float((grid - default_grid).abs().max()):.4g} (max |default| "
+        f"{float(default_grid.abs().max()):.4g})")
+    if not corr > 0.95:
+        raise AssertionError(f"wino/default grid correlation {corr} <= 0.95")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wino_") as tmp:
+        tmp = Path(tmp)
+        engine.save_engine(tmp / "wino.npz")
+        loaded = YOLOInference(model, dev, image_size=SIZE, optimize="int8",
+                               engine_artifact=str(tmp / "wino.npz"))
+        _zero_wino_counts()
+        again = loaded.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
+        torch.cuda.synchronize()
+        reloaded = _wino_counts()
+        if wino_points_of(loaded._int8_state["q"]) != wino or reloaded[:3] != (1, 42, 16):
+            raise AssertionError(f"the reloaded wino engine lost its hooks: launches {reloaded}")
+        if not all(torch.equal(a, b) for a, b in zip(again, out)):
+            raise AssertionError("the reloaded wino engine's detections differ")
+        log(f"[18] save_engine -> {(tmp / 'wino.npz').stat().st_size / 1e6:.1f} MB; a fresh "
+            f"engine from it reinstalls the 16 hooks (launches {reloaded[:3]}) and gives "
+            f"identical detections")
+        del loaded
+
+        ckpt = tmp / "yolo_random.pth"
+        torch.save(model.state_dict(), ckpt)
+        img_dir = tmp / "images"
+        img_dir.mkdir()
+        r = np.random.default_rng(11)
+        for k in range(4):
+            Image.fromarray(r.integers(0, 256, size=(375, 500, 3), dtype=np.uint8)).save(
+                img_dir / f"image{k}.jpg")
+        before = _wino_counts()
+        predict.main(["--checkpoint", str(ckpt), "--image-dir", str(img_dir), "--device", "cuda",
+                      "--conf-threshold=0.99", "--output", str(tmp / "out"), "--int8",
+                      "--engine", str(tmp / "wino.npz")])
+        grew = [a - b for a, b in zip(_wino_counts(), before)]
+        written = sorted(p.name for p in (tmp / "out").iterdir())
+        if written != [f"image{k}_pred.jpg" for k in range(4)] or grew[:3] != [1, 42, 16]:
+            raise AssertionError(f"predict --engine <wino>: wrote {written}, launches {grew}")
+        log(f"[18] python -m yolo_tpu_torch.predict --int8 --engine <wino artifact>: wrote 4 "
+            f"images, launches stem/conv/wino/NMS {grew}")
+
+    cmd = [sys.executable, "-m", "yolo_tpu_torch.bench_int8", "--batch", str(SLICE_BATCH),
+           "--variants", "int8,wino"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_int8 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[18]   {line}")
+    log(f"[18] python -m yolo_tpu_torch.bench_int8 {' '.join(cmd[3:])}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del engine
+    return q, thr, launches
+
+
+# ---------------------------------------------------------------- phase 19
+def phase_wino_timing(q, thr: float, card: str) -> None:
+    import torch
+
+    from yolo_tpu_torch.serving.engine import default_impl, make_int8_engine_fn
+    from yolo_tpu_torch.serving.winograd import HEAD_POINTS, valid_points, wino_impl_hooks
+
+    fns = {"default": make_int8_engine_fn(S, B, C, impl=default_impl()),
+           "wino(all 16)": make_int8_engine_fn(S, B, C, impl=wino_impl_hooks(
+               valid_points((3, 4, 6, 3)), default_impl())),
+           "wino(head_conv1,3,4)": make_int8_engine_fn(S, B, C, impl=wino_impl_hooks(
+               HEAD_POINTS, default_impl()))}
+    order = list(fns) + list(reversed(fns))
+    r = np.random.default_rng(59)
+    for batch in (1, 16, 64, 256):
+        images = torch.from_numpy(
+            r.integers(0, 256, size=(batch, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
+        rates = {}
+        for name in order:
+            ms = cuda_ms(lambda: fns[name](q, images, thr, IOU_T),
+                         iters=3 if batch == 256 else 10, warmup=2)
+            rates.setdefault(name, []).append((ms, batch * 1000.0 / ms))
+        log(f"[19] {card}: batch {batch}: " + "; ".join(
+            f"{k} " + ", ".join(f"{ms:.3f} ms/batch {v:.1f} img/s" for ms, v in runs)
+            for k, runs in rates.items())
+            + " (CUDA events, in turns; uint8 images on the card -> decode -> NMS kernel)")
+        if batch in (16, 256):
+            per_kernel, wall = profile_kernels(lambda: fns["wino(all 16)"](q, images, thr, IOU_T),
+                                               iters=2)
+            busy = sum(per_kernel.values())
+            if not busy > 0:
+                log(f"[19]   wino(all 16), batch {batch}: device busy {profiled(busy)}")
+            else:
+                share = {k: sum(v for n, v in per_kernel.items() if body in n) for k, body in
+                         (("wino", "int8_wino_kernel"), ("int8 conv", "int8_conv_kernel"))}
+                ms = min(v[0] for v in rates["wino(all 16)"])
+                log(f"[19]   wino(all 16), batch {batch}: device busy {busy:.3f} ms per batch "
+                    f"(idle {100 * max(0.0, 1 - busy / ms):.1f}% of the faster CUDA-event time; "
+                    f"{wall:.3f} ms wall under torch.profiler); " + ", ".join(
+                        f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)" for k, v in share.items()))
+        del images
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not (REPO / "yolo_tpu_torch" / "csrc" / "nms.cu").is_file():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1528,7 +1825,12 @@ def main() -> None:
     ck = timed(14, phase_chain_kernels, card)
     chained, default, q, thr, ch_launches = timed(15, phase_chain_slice, model)
     timed(16, phase_chain_timing, chained, default, q, thr, card)
-    del chained, default, q, model
+    del chained, default, q
+    torch.cuda.empty_cache()
+    wk = timed(17, phase_wino_kernels, card)
+    q, thr, wino_launches = timed(18, phase_wino_slice, model)
+    timed(19, phase_wino_timing, q, thr, card)
+    del q, model
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
 
     k_ms, p_ms, b_ms, b_by = kv["timings"][(SLICE_BATCH, 98)]
@@ -1611,6 +1913,38 @@ def main() -> None:
             "replaces": f"yolo_tpu/serving/pallas_int8.py:{line}",
             "launches": count,
             "max_abs_err": ck[f"{key}_err"],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    # The Winograd kernel at head.conv1 (14x14, 2048 -> 1024, leaky), batch 16,
+    # launches per served batch of the wino engine; its ablation modes at the
+    # same geometry, launches from the ablation's own run.
+    k_ms, p_ms, b_ms, b_by, lib_ms, _ = wk["conv"]["head.conv1"]
+    record["kernels"].append({
+        "name": "int8_wino",
+        "route": "cuda",
+        "source": "yolo_tpu_torch/csrc/int8_wino.cu",
+        "replaces": "yolo_tpu/serving/pallas_wino.py:46",
+        "launches": wino_launches[2],
+        "max_abs_err": wk["err"],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
+    for mode in ("taps", "dots", "dots-raw"):
+        k_ms, p_ms, b_ms, b_by = wk["modes"][mode]
+        record["kernels"].append({
+            "name": f"int8_wino_{mode.replace('-', '_')}",
+            "route": "cuda",
+            "source": "yolo_tpu_torch/csrc/int8_wino.cu",
+            "replaces": "experiments/wino_ablate.py:57",
+            "launches": wk["ablation_launches"][mode],
+            "max_abs_err": wk["mode_err"],
             "ms": k_ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,

@@ -1,6 +1,6 @@
 """The CUDA kernels (NMS, the four fused-BN kernels, the int8 stem front, the
-int8 conv and the fused int8 bottleneck and stage chain) against their plain
-twins, on the card.
+int8 conv, the fused int8 bottleneck and stage chain, and the per-tap int8
+Winograd conv with its ablation modes) against their plain twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU and nvcc, and skip without
 them. Run them on the GPU machine with
@@ -416,3 +416,99 @@ def test_int8_engine_with_stage_chains_on_the_card(device):
     assert cb.LAUNCHES["chain"] - chains == 4
     assert cuda_int8.LAUNCHES - convs == 1 + 3 * 4 + 4 + 1
     assert torch.equal(got, ref)
+
+
+# ------------------------------------------------------------- Winograd conv
+def random_qwino(seed, c, k):
+    """Seeded per-tap Winograd q-params (numpy, winograd.wino_quantize's
+    layout): int8 taps U, mw that scales each output to about +-100 (so the
+    rounding, the activation and both clips occur), bias and per-tap dinv
+    that make some taps clip."""
+    r = np.random.default_rng(seed)
+    return {"uq": r.integers(-127, 128, size=(16, c, k), dtype=np.int8),
+            "mw": (r.uniform(0.5, 1.5, (16, 1, k)) * 6e-3 / np.sqrt(c)).astype(np.float32),
+            "t": r.uniform(-3, 3, k).astype(np.float32),
+            "dinv": r.uniform(0.2, 0.6, (16, 1, 1)).astype(np.float32)}
+
+
+# (N, H, W): one tile, an even square, odd and non-square images (the
+# surplus output row / column cropped), several M-tiles of 32.
+WINO_SHAPES = [(n, h, w) for n in (1, 3) for h, w in ((1, 1), (2, 2), (7, 7), (7, 9), (8, 8),
+                                                       (14, 14))]
+
+
+@pytest.mark.parametrize("shape", WINO_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("ck", [(64, 128), (128, 64)], ids=lambda ck: f"{ck[0]}to{ck[1]}")
+@pytest.mark.parametrize("leaky", [True, False], ids=["leaky", "relu"])
+def test_wino_kernel_equals_plain_twin(device, shape, ck, leaky):
+    from yolo_tpu_torch.serving import cuda_wino
+
+    c, k = ck
+    qw = random_qwino(sum(shape) + c, c, k)
+    x = _x(3, (*shape, c))
+    ref = cuda_wino.conv3x3_wino_reference(x, {"wino": _on(qw, "cpu")}, leaky)
+    before = dict(cuda_wino.LAUNCHES)
+    got = cuda_wino.conv3x3_wino(x.to(device), {"wino": _on(qw, device)}, leaky)
+    torch.cuda.synchronize()
+    assert cuda_wino.LAUNCHES == {**before, "full": before["full"] + 1}
+    assert got.dtype == torch.int8 and got.shape == ref.shape == (*shape, k)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("mode", ["full", "taps", "dots", "dots-raw"])
+@pytest.mark.parametrize("shape", [(2, 7, 9), (1, 14, 14)], ids=lambda s: "x".join(map(str, s)))
+def test_wino_ablation_modes_equal_their_twins(device, mode, shape):
+    from yolo_tpu_torch.serving import cuda_wino
+
+    qw = random_qwino(5, 128, 128)
+    x = _x(4, (*shape, 128))
+    ref = cuda_wino.wino_ablate(x, _on(qw, "cpu"), mode)
+    before = cuda_wino.LAUNCHES[mode]
+    got = cuda_wino.wino_ablate(x.to(device), _on(qw, device), mode)
+    torch.cuda.synchronize()
+    assert cuda_wino.LAUNCHES[mode] == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_wino_kernel_rejects_what_it_does_not_take(device):
+    from yolo_tpu_torch.serving import cuda_wino
+
+    qw = _on(random_qwino(0, 96, 64), device)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cuda_wino.conv3x3_wino(_x(0, (1, 8, 8, 96)).to(device), {"wino": qw})
+    qw = _on(random_qwino(0, 64, 64), device)
+    with pytest.raises(ValueError, match="on x's device"):
+        cuda_wino.conv3x3_wino(_x(0, (1, 8, 8, 64)).to(device),
+                               {"wino": {**_on(random_qwino(0, 64, 64), "cpu"), "uk": qw["uk"]}})
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_wino.conv3x3_wino(_x(0, (1, 8, 8, 64)).to(device).permute(0, 2, 1, 3),
+                               {"wino": qw})
+    with pytest.raises(ValueError, match="K <= C"):
+        cuda_wino.wino_ablate(_x(0, (1, 8, 8, 64)).to(device),
+                              _on(random_qwino(0, 64, 128), device), "taps")
+
+
+def test_int8_engine_with_wino_convs_on_the_card(device):
+    """A small int8 engine (2 blocks a stage, 64x64) with every Winograd point
+    through the kernel equals the same engine with the twin on the card, bit
+    for bit, and launches 8 Winograd convs and 26 int8 convs (34 less the 8)."""
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.serving import cuda_int8, cuda_wino, winograd
+    from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl, int8_forward
+
+    model = create_model("resnet", 20, 7, 2, device=device, stage_sizes=(2, 2, 2, 2),
+                         image_size=64, generator=torch.Generator(device=device).manual_seed(0))
+    r = np.random.default_rng(4)
+    calib = torch.from_numpy(r.normal(size=(4, 64, 64, 3)).astype(np.float32)).to(device)
+    wino = winograd.valid_points((2, 2, 2, 2))
+    assert len(wino) == 8
+    _, q = build_int8_predict(model, [calib], wino=wino)
+    images = torch.from_numpy(r.integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8)).to(device)
+    twin = int8_forward(q, images, impl=winograd.wino_impl_hooks(
+        wino, default_impl(), conv=winograd.conv3x3_wino_rq))
+    convs, winos = cuda_int8.LAUNCHES, cuda_wino.LAUNCHES["full"]
+    got = int8_forward(q, images, impl=winograd.wino_impl_hooks(wino, default_impl()))
+    torch.cuda.synchronize()
+    assert cuda_wino.LAUNCHES["full"] - winos == 8
+    assert cuda_int8.LAUNCHES - convs == 1 + 3 * 8 + 4 + 4 + 1 - 8
+    assert torch.equal(got, twin)

@@ -44,7 +44,8 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch.serving.engine, yolo_tpu_torch.serving.export\n"
         "import yolo_tpu_torch.serving.fold, yolo_tpu_torch.serving.quant\n"
         "import yolo_tpu_torch.serving.cuda_bottleneck, yolo_tpu_torch.bench_int8\n"
-        "import yolo_tpu_torch.utils.timing\n"
+        "import yolo_tpu_torch.utils.timing, yolo_tpu_torch.serving.winograd\n"
+        "import yolo_tpu_torch.serving.cuda_wino, yolo_tpu_torch.experiments.wino_ablate\n"
         "assert 'triton' not in sys.modules\n"
         "assert yolo_tpu_torch.YOLOInference is yolo_tpu_torch.inference.YOLOInference\n"
         "print('OK')\n"
@@ -85,8 +86,8 @@ def test_kernel_build_flags():
 
     assert (PORT / "csrc" / "nms.cu").is_file()
     assert [p.name for p in kernels.sources()] == [
-        "fused_bn.cu", "int8_bottleneck.cu", "int8_conv.cu", "nms.cu", "quant_s2d.cu",
-        "int8_common.cuh"]
+        "fused_bn.cu", "int8_bottleneck.cu", "int8_conv.cu", "int8_wino.cu", "nms.cu",
+        "quant_s2d.cu", "int8_common.cuh"]
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

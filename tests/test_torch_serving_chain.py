@@ -133,12 +133,26 @@ def test_stage_chain_routing(q):
     assert torch.equal(got, engine.int8_forward(cut, images, impl=engine.default_impl()))
 
 
-@pytest.mark.parametrize("variant", ["colpack", "retile", "t2", "wino", "pallas"])
+@pytest.mark.parametrize("variant", ["colpack", "retile", "t2", "pallas"])
 def test_bench_int8_refuses_unported_variants(variant):
     from yolo_tpu_torch import bench_int8
 
     with pytest.raises(SystemExit, match="refused|unknown variant"):
         bench_int8.main(["--variants", f"int8,{variant}"])
+
+
+def test_bench_int8_accepts_wino_and_parses_wino_spec(monkeypatch):
+    from yolo_tpu_torch import bench_int8
+
+    assert bench_int8._variants("int8,wino") == ["int8", "wino"]
+    assert bench_int8._wino_specs(bench_int8.WINO_SPEC) == [
+        ("head_conv1",), ("head_conv1", "head_conv3", "head_conv4")]
+    assert bench_int8._wino_specs("l1b0_conv2,l4b2_conv2;") == [("l1b0_conv2", "l4b2_conv2")]
+    with pytest.raises(SystemExit, match="--wino-spec.*not stride-1 3x3 convs"):
+        bench_int8.main(["--variants", "wino", "--wino-spec", "head_conv1;l2b0_conv2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):  # parsed, then needs the card
+        bench_int8.main(["--variants", "int8,wino", "--wino-spec", "head_conv1,head_conv4"])
 
 
 def test_bench_int8_needs_a_card(monkeypatch):

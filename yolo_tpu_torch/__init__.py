@@ -5,8 +5,9 @@ names. It imports torch and never jax. So far it covers the ResNet50
 model's exact inference (``models``, ``ops.decode``, NMS through the
 hand-written CUDA kernel ``csrc/nms.cu``), its training (``training``,
 ``data``, the fused-BN kernels ``csrc/fused_bn.cu``) and its int8 serving
-engine (``serving``, the kernels ``csrc/quant_s2d.cu`` and
-``csrc/int8_conv.cu``), driven by ``inference.YOLOInference`` and the
+engine (``serving``, the kernels ``csrc/quant_s2d.cu``,
+``csrc/int8_conv.cu``, the opt-in ``csrc/int8_bottleneck.cu`` and
+``csrc/int8_wino.cu``), driven by ``inference.YOLOInference`` and the
 ``predict`` and ``train`` CLIs.
 
 Importing the package loads nothing else: the names below resolve on first

@@ -12,7 +12,9 @@ eagerly.
 BN-folded, per-channel-quantized weights, calibrated activation scales, the
 stem-front and int8-conv kernels), built from ``calibration`` batches, or
 lazily from the first predicted batch, or loaded from an ``engine_artifact``
-(serving/export.py). The Winograd convs (``wino=``) are not ported yet.
+(serving/export.py). ``wino=`` names stride-1 3x3 convs that run as per-tap
+int8 Winograd convs (serving/winograd.py); an artifact of such an engine
+serves with the same convs.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ class YOLOInference:
         engine_artifact: path of a saved int8 engine (.npz, from
             :meth:`save_engine` or the JAX package's ``save_engine``) to
             serve instead of calibrating; needs ``optimize="int8"``.
+        wino: conv names ("head_conv1", "l3b1_conv2", ...) the int8 engine
+            runs as per-tap Winograd convs (not bit-exact against the direct
+            conv); an artifact brings its own.
 
     Example:
         >>> engine = YOLOInference(model, "cuda")
@@ -64,7 +69,11 @@ class YOLOInference:
         if engine_artifact is not None and optimize != "int8":
             raise ValueError("engine_artifact requires optimize='int8'")
         if wino:
-            raise NotImplementedError("the Winograd int8 convs (wino=) are not yet ported")
+            from yolo_tpu_torch.serving.winograd import check_points
+
+            if optimize != "int8":
+                raise ValueError("wino requires optimize='int8'")
+            check_points(wino)
         self.device = torch.device(device)
         model = model.to(self.device).eval()
         if self.device.type == "cuda":
@@ -75,7 +84,7 @@ class YOLOInference:
         self._run = self._exact
         if optimize == "int8":
             self._run = (self._load_int8_artifact(engine_artifact) if engine_artifact
-                         else self._build_int8(calibration))
+                         else self._build_int8(calibration, tuple(wino)))
 
     @torch.inference_mode()
     def _predict_batch(self, images, conf_threshold: float,
@@ -97,14 +106,14 @@ class YOLOInference:
         return nms(dets, nms_threshold)
 
     # --------------------------------------------------------------- int8 engine
-    def _build_int8(self, calibration):
+    def _build_int8(self, calibration, wino):
         from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl
 
         state = self._int8_state
         if calibration is not None:
             # Materialized first, so that a generator still counts its images.
             calibration = [torch.as_tensor(b, device=self.device) for b in calibration]
-            fn, q = build_int8_predict(self.model, calibration, impl=default_impl())
+            fn, q = build_int8_predict(self.model, calibration, impl=default_impl(), wino=wino)
             state.update(fn=fn, q=q, n_calib=sum(int(b.shape[0]) for b in calibration))
             return lambda images, conf, nms_t: fn(q, images, conf, nms_t)
 
@@ -127,16 +136,18 @@ class YOLOInference:
                 calib = images[:n_calib]
                 calib = device_normalize(calib) if calib.dtype == torch.uint8 else calib
                 state["fn"], state["q"] = build_int8_predict(
-                    self.model, [calib.to(torch.float32)], impl=default_impl())
+                    self.model, [calib.to(torch.float32)], impl=default_impl(), wino=wino)
                 state["n_calib"] = n_calib
             return state["fn"](state["q"], images, conf, nms_t)
 
         return lazy_predict
 
     def _load_int8_artifact(self, path):
-        """Serve a saved engine: no fold and no calibration."""
+        """Serve a saved engine: no fold and no calibration. A Winograd
+        engine's convs get their hooks back (never a silent direct conv)."""
         from yolo_tpu_torch.serving.engine import default_impl, make_int8_engine_fn, to_device
         from yolo_tpu_torch.serving.export import load_engine
+        from yolo_tpu_torch.serving.winograd import wino_impl_hooks, wino_points_of
 
         q, meta = load_engine(path)
         for attr in ("S", "B", "num_classes"):
@@ -145,7 +156,11 @@ class YOLOInference:
                     f"engine artifact {path} was exported for {attr}={meta[attr]} but the"
                     f" model has {getattr(self.model, attr)}")
         q = to_device(q, self.device)
-        fn = make_int8_engine_fn(meta["S"], meta["B"], meta["num_classes"], impl=default_impl())
+        impl = default_impl()
+        wino = wino_points_of(q)
+        if wino:
+            impl = wino_impl_hooks(wino, impl)
+        fn = make_int8_engine_fn(meta["S"], meta["B"], meta["num_classes"], impl=impl)
         self._int8_state.update(fn=fn, q=q)
         return lambda images, conf, nms_t: fn(q, images, conf, nms_t)
 

@@ -8,13 +8,16 @@
 - ``cuda_int8``: int8 conv + requant, kernel ``csrc/int8_conv.cu``;
 - ``cuda_bottleneck``: fused identity bottlenecks and stage chains, kernels
   ``csrc/int8_bottleneck.cu`` (the opt-in ``impl["layer1"..]`` hooks);
+- ``winograd``: the per-tap int8 Winograd F(2,3) convs named by ``wino=``
+  (taps, quantization, the plain twin, the engine hooks), and ``cuda_wino``,
+  their kernel ``csrc/int8_wino.cu`` with its ablation modes;
 - ``engine``: the int8-resident forward with the decode + NMS tail;
 - ``export``: ``.npz`` engine artifacts, interchangeable with the JAX
   package's.
 
 Serving mode is opt-in: ``YOLOInference(..., optimize="int8")``. The request
-batcher, the HTTP server, the sharded engine, the Winograd convs and the AOT
-artifact are not ported yet.
+batcher, the HTTP server, the sharded engine and the AOT artifact are not
+ported yet.
 """
 
 from yolo_tpu_torch.serving.cuda_bottleneck import block_int8, chain_int8

@@ -7,7 +7,10 @@ the 4 head convs. Every int8 conv, and int8 fc1, runs through the CUDA
 kernel ``csrc/int8_conv.cu`` (``serving/cuda_int8.py``): an int32
 accumulator and a fused per-channel requant; opt-in stage-chain hooks
 (``impl["layer1"..]``, ``serving/cuda_bottleneck.py``) run a stage's
-bottlenecks as fused kernels instead. The stem front (normalize,
+bottlenecks as fused kernels instead, and opt-in per-conv hooks
+(``impl["conv2_s1"]``, ``impl["head_conv{i}"]``) run the stride-1 3x3 convs
+named by ``wino=`` as per-tap int8 Winograd convs (``serving/winograd.py``,
+kernel ``csrc/int8_wino.cu``). The stem front (normalize,
 quantize, space-to-depth) is the kernel ``csrc/quant_s2d.cu``
 (``serving/cuda_stem.py``) under :func:`default_impl`, at any batch. The FC
 stack runs in bfloat16 values with float32 sums, and the decode + NMS tail
@@ -16,9 +19,10 @@ stack runs in bfloat16 values with float32 sums, and the decode + NMS tail
 On CPU tensors each kernel wrapper runs its plain twin, so the same code is
 the CPU engine. ``conv=plain_conv`` runs the twins on the card too, for
 checks. q-params live in the JAX package's layout (HWIO weights, flax's fc1
-row order); :func:`to_device` moves them to a device and adds the kernel's
-packed weights (``wk``) and float32 copies of the bfloat16 FC weights
-(``wf``), which ``export.save_engine`` leaves out.
+row order); :func:`to_device` moves them to a device and adds the kernels'
+packed weights (``wk``, and ``uk`` for the Winograd taps) and float32
+copies of the bfloat16 FC weights (``wf``), which ``export.save_engine``
+leaves out.
 """
 
 from __future__ import annotations
@@ -32,10 +36,10 @@ import torch.nn.functional as F
 from yolo_tpu_torch.data.transforms import device_normalize
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.decode import Detections, decode_predictions
-from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
 
 #: Keys :func:`to_device` derives from the q-params (not part of an artifact).
-DERIVED_KEYS = ("wk", "wf")
+DERIVED_KEYS = ("wk", "wf", "uk")
 
 
 def kernel_conv(x, qc, stride=1, pad=0, mode="relu", res=None, r=None):
@@ -71,10 +75,17 @@ def max_pool_int8(x: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
-def _block(x_q, qb, stride: int = 1, conv: Callable = kernel_conv):
-    """One bottleneck block: three int8 convs with fused requants (+ downsample)."""
+def _block(x_q, qb, stride: int = 1, conv: Callable = kernel_conv,
+           conv2_s1: Optional[Callable] = None):
+    """One bottleneck block: three int8 convs with fused requants (+ downsample).
+
+    ``conv2_s1`` ``(y1, qc) -> y2`` replaces a stride-1 conv2, e.g. the
+    Winograd conv (``winograd.wino_impl_hooks``)."""
     y1 = conv(x_q, qb["conv1"], 1, 0, "relu")
-    y2 = conv(y1, qb["conv2"], stride, 1, "relu")
+    if conv2_s1 is not None and stride == 1:
+        y2 = conv2_s1(y1, qb["conv2"])
+    else:
+        y2 = conv(y1, qb["conv2"], stride, 1, "relu")
     if qb["downsample"] is not None:
         # The branch is requantized to int8 at its own calibrated scale
         # (quant.py), then rescaled by s_ds / s_out in conv3's epilogue.
@@ -108,8 +119,11 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
     ``impl["layer1"]`` .. ``impl["layer4"]`` run a stage's stride-1 blocks
     (e.g. ``cuda_bottleneck.chain_int8``, one fused launch per stage; the
     JAX engine's W padding to 32 columns was a TPU constraint and is gone);
-    ``conv`` runs every other int8 conv (:func:`kernel_conv`, or
-    :func:`plain_conv`).
+    ``impl["conv2_s1"]["l{s}b{b}"]`` and ``impl["head_conv{i}"]`` replace
+    one conv, ``(x_q, qc) -> x_q`` (the Winograd convs,
+    ``winograd.wino_impl_hooks``; a stage with a chain hook ignores its
+    ``conv2_s1`` hooks); ``conv`` runs every other int8 conv
+    (:func:`kernel_conv`, or :func:`plain_conv`).
     """
     impl = impl or {}
     stem = q["stem"]
@@ -135,8 +149,10 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
         # stride-1 transition, downsample included, is part of its chain.
         chain_fn = impl.get(f"layer{si + 1}")
         if chain_fn is None:
+            s1 = impl.get("conv2_s1", {})
             for bi, qb in enumerate(blocks):
-                x_q = _block(x_q, qb, 2 if (si > 0 and bi == 0) else 1, conv)
+                x_q = _block(x_q, qb, 2 if (si > 0 and bi == 0) else 1, conv,
+                             s1.get(f"l{si + 1}b{bi}"))
             continue
         start = 0
         if si > 0:
@@ -147,7 +163,11 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
 
     head = q["head"]
     for i, stride in ((1, 1), (2, 2), (3, 1), (4, 1)):
-        x_q = conv(x_q, head[f"conv{i}"], stride, 1, "leaky")
+        conv_fn = impl.get(f"head_conv{i}")
+        if conv_fn is not None:
+            x_q = conv_fn(x_q, head[f"conv{i}"])
+        else:
+            x_q = conv(x_q, head[f"conv{i}"], stride, 1, "leaky")
 
     n = x_q.shape[0]
     fc1 = head["fc1"]
@@ -175,8 +195,9 @@ def default_impl() -> Dict:
 
 def to_device(q: Dict, device) -> Dict:
     """q-params (torch tensors or numpy arrays, JAX layout) on ``device``, plus
-    each int8 layer's packed kernel weight ``wk`` on CUDA and float32 copies
-    ``wf`` of the bfloat16 FC weights."""
+    each int8 layer's packed kernel weight ``wk`` and each Winograd conv's
+    packed weight taps ``uk`` on CUDA, and float32 copies ``wf`` of the
+    bfloat16 FC weights."""
     device = torch.device(device)
 
     def walk(node):
@@ -185,9 +206,9 @@ def to_device(q: Dict, device) -> Dict:
         if isinstance(node, list):
             return [walk(v) for v in node]
         if isinstance(node, dict):
-            if "wino" in node:
-                raise NotImplementedError("Winograd int8 convs (wino) are not yet ported")
             out = {k: walk(v) for k, v in node.items() if k not in DERIVED_KEYS}
+            if "uq" in out and device.type == "cuda":
+                out["uk"] = cuda_wino.pack_taps(out["uq"])
             if "wq" in out and device.type == "cuda":
                 wq = out["wq"]
                 out["wk"] = cuda_int8.pack_weight(wq if wq.dim() == 4 else wq[None, None])
@@ -224,11 +245,15 @@ def build_int8_predict(model, calibration_images, impl=None, nms_fn=None, stem_m
     ``model``: a ResNet ``YOLOv1`` (weights loaded) on the engine's device.
     ``calibration_images``: iterable of (n, H, W, 3) normalized float batches;
     calibration runs the folded forward in bfloat16, as the JAX engine does.
+    ``wino``: conv names ("head_conv1", "l3b1_conv2", ...) run as per-tap
+    int8 Winograd convs; their calibration points, params and ``impl``
+    hooks (``winograd.wino_impl_hooks``) are added here.
     Returns (predict_fn, q_params), q on the model's device with its
     packed weights.
     """
     from yolo_tpu_torch.serving.fold import fold_flagship
     from yolo_tpu_torch.serving.quant import calibrate_activations, quantize_folded
+    from yolo_tpu_torch.serving.winograd import wino_impl_hooks
 
     device = next(model.parameters()).device
     with torch.inference_mode():
@@ -237,5 +262,7 @@ def build_int8_predict(model, calibration_images, impl=None, nms_fn=None, stem_m
                                         wino_points=wino)
         q = to_device(quantize_folded(folded, act_max, stem_mode=stem_mode,
                                       fc1_mode=fc1_mode, wino=wino), device)
+    if wino:
+        impl = wino_impl_hooks(wino, impl)
     fn = make_int8_engine_fn(model.S, model.B, model.num_classes, impl=impl, nms_fn=nms_fn)
     return fn, q

@@ -110,12 +110,15 @@ def _conv(x, w, stride=1, pad=0, dtype=torch.float32):
 
 
 def folded_forward(folded: Dict, images: torch.Tensor, dtype=torch.float32, stats=None,
-                   S: int = 7) -> torch.Tensor:
+                   S: int = 7, wino_points=()) -> torch.Tensor:
     """Eval forward on folded params: (N, H, W, 3) -> (N, S, S, B*5+C) float32.
 
     ``stats`` (optional dict) collects max |activation| at every int8
     quantization point as 0-dim float32 tensors, under the keys of
-    ``quant.act_points``. ``dtype`` is the operand type of the convs and
+    ``quant.act_points``. ``wino_points`` names stride-1 3x3 convs
+    ("head_conv1", "l3b1_conv2", ...) whose input also gets its (16,)
+    per-tap Winograd maxima recorded under ``{name}_wtap``
+    (``winograd.tap_maxima``). ``dtype`` is the operand type of the convs and
     FCs (float32, or bfloat16 for calibration); sums and results are float32.
     """
     leaky = lambda v: torch.where(v > 0, v, 0.1 * v)  # noqa: E731
@@ -123,6 +126,12 @@ def folded_forward(folded: Dict, images: torch.Tensor, dtype=torch.float32, stat
     def record(name, v):
         if stats is not None:
             stats[name] = v.abs().amax().float()
+
+    def record_wtap(name, v):
+        if stats is not None and name in wino_points:
+            from yolo_tpu_torch.serving.winograd import tap_maxima
+
+            stats[f"{name}_wtap"] = tap_maxima(v.permute(0, 2, 3, 1))
 
     x = images.to(dtype).float() if dtype != torch.float32 else images.float()
     record("input", x)
@@ -138,6 +147,8 @@ def folded_forward(folded: Dict, images: torch.Tensor, dtype=torch.float32, stat
             identity = x
             y = torch.relu(_conv(x, blk["conv1"]["w"], 1, 0, dtype) + _bias(blk["conv1"]["b"]))
             record(f"{tag}_y1", y)
+            if stride == 1:
+                record_wtap(f"{tag}_conv2", y)
             y = torch.relu(_conv(y, blk["conv2"]["w"], stride, 1, dtype)
                            + _bias(blk["conv2"]["b"]))
             record(f"{tag}_y2", y)
@@ -154,6 +165,8 @@ def folded_forward(folded: Dict, images: torch.Tensor, dtype=torch.float32, stat
     head = folded["head"]
     for i, stride in ((1, 1), (2, 2), (3, 1), (4, 1)):
         conv = head[f"conv{i}"]
+        if stride == 1:
+            record_wtap(f"head_conv{i}", x)
         x = leaky(_conv(x, conv["w"], stride, 1, dtype) + _bias(conv["b"]))
         record(f"head_conv{i}", x)
 

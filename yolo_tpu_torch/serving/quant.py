@@ -14,16 +14,19 @@ q-params tree:
 Every scalar enters the arithmetic as a float32 tensor on the weights'
 device, as the JAX package's weakly typed Python scalars do, and divisions
 take a tensor divisor: on CUDA, torch turns a division by a host scalar into
-a reciprocal multiply. So the q-params equal the JAX package's bit for bit.
-The per-tap Winograd parameters (``wino=``) are not ported yet.
+a reciprocal multiply. So the q-params equal the JAX package's bit for bit,
+the per-tap Winograd parameters of the convs named by ``wino=``
+(``serving/winograd.py``) included.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
+from yolo_tpu_torch.serving import winograd
 from yolo_tpu_torch.serving.fold import folded_forward
 
 # Flagship activation quantization points (ResNet50 [3,4,6,3] + 4 head convs).
@@ -41,11 +44,6 @@ ACT_POINTS: List[str] = (
 )
 
 
-def _not_ported(wino) -> None:
-    if wino:
-        raise NotImplementedError("the Winograd int8 convs (wino=) are not yet ported")
-
-
 def act_points(folded: Dict) -> List[str]:
     """Quantization-point names for an arbitrary folded struct."""
     pts = ["input", "stem"]
@@ -58,20 +56,32 @@ def act_points(folded: Dict) -> List[str]:
     return pts
 
 
+def _stage_sizes(folded: Dict) -> List[int]:
+    return [len(blocks) for blocks in folded["layers"]]
+
+
 @torch.inference_mode()
 def calibrate_activations(folded: Dict, sample_batches, dtype=torch.float32,
-                          wino_points=()) -> Dict[str, float]:
+                          wino_points=()) -> Dict:
     """Run the folded forward over (N, H, W, 3) normalized batches; return
-    max |activation| per point. One host read per batch."""
-    _not_ported(wino_points)
+    max |activation| per point (a float), and for each of ``wino_points``
+    the elementwise max of its (16,) tap maxima under ``{name}_wtap`` (a
+    float32 numpy array). One host read per batch."""
+    winograd.check_points(wino_points, _stage_sizes(folded))
     device = folded["stem"]["w"].device
-    maxes: Dict[str, float] = {}
+    maxes: Dict = {}
     for batch in sample_batches:
         stats: Dict = {}
-        folded_forward(folded, torch.as_tensor(batch, device=device), dtype=dtype, stats=stats)
-        values = torch.stack(list(stats.values())).cpu().tolist()
-        for k, v in zip(stats, values):
-            maxes[k] = max(maxes.get(k, 0.0), v)
+        folded_forward(folded, torch.as_tensor(batch, device=device), dtype=dtype, stats=stats,
+                       wino_points=tuple(wino_points))
+        flat = torch.cat([v.reshape(-1) for v in stats.values()]).cpu().numpy()
+        at = 0
+        for k, v in stats.items():
+            if v.dim() == 0:
+                maxes[k] = max(maxes.get(k, 0.0), float(flat[at]))
+            else:  # per-tap maxima
+                maxes[k] = np.maximum(maxes.get(k, 0.0), flat[at:at + v.numel()])
+            at += v.numel()
     return maxes
 
 
@@ -131,15 +141,24 @@ def quantize_folded(folded: Dict, act_max: Dict[str, float], stem_mode: str = "s
     ``stem_mode``: "s2d" stores the stem as its space-to-depth 4x4
     equivalent (the engine dispatches on the kernel's shape), "direct" as
     the 7x7/s2 kernel. ``fc1_mode``: "int8" quantizes fc1 per output
-    channel, "bf16" keeps it in bfloat16.
+    channel, "bf16" keeps it in bfloat16. ``wino``: names of stride-1 3x3
+    convs ("head_conv1", "l3b1_conv2", ...) that also get per-tap Winograd
+    params under ``qc["wino"]`` (``winograd.wino_quantize``; needs the
+    ``{name}_wtap`` maxima of ``calibrate_activations(wino_points=...)``).
     """
-    _not_ported(wino)
+    winograd.check_points(wino, _stage_sizes(folded))
     if stem_mode not in ("s2d", "direct"):
         raise ValueError(f"stem_mode must be 's2d' or 'direct', got {stem_mode!r}")
     if fc1_mode not in ("int8", "bf16"):
         raise ValueError(f"fc1_mode must be 'int8' or 'bf16', got {fc1_mode!r}")
     dev = folded["stem"]["w"].device
-    s = {k: max(v, 1e-12) / 127.0 for k, v in act_max.items()}
+    s = {k: max(v, 1e-12) / 127.0 for k, v in act_max.items() if not k.endswith("_wtap")}
+
+    def with_wino(qc: Dict, name: str, conv: Dict, s_in: float, s_out: float) -> Dict:
+        if name in wino:
+            qc["wino"] = winograd.wino_quantize(conv["w"], conv["b"], s_in, s_out,
+                                                act_max[f"{name}_wtap"])
+        return qc
 
     q: Dict = {"s_img": _f32(s["input"], dev)}
     stem_w = folded["stem"]["w"]
@@ -155,8 +174,9 @@ def quantize_folded(folded: Dict, act_max: Dict[str, float], stem_mode: str = "s
             tag = f"l{si + 1}b{bi}"
             qb: Dict = {
                 "conv1": _layer(blk["conv1"]["w"], blk["conv1"]["b"], s_in, s[f"{tag}_y1"]),
-                "conv2": _layer(blk["conv2"]["w"], blk["conv2"]["b"], s[f"{tag}_y1"],
-                                s[f"{tag}_y2"]),
+                "conv2": with_wino(_layer(blk["conv2"]["w"], blk["conv2"]["b"], s[f"{tag}_y1"],
+                                          s[f"{tag}_y2"]),
+                                   f"{tag}_conv2", blk["conv2"], s[f"{tag}_y1"], s[f"{tag}_y2"]),
                 "conv3": _layer(blk["conv3"]["w"], blk["conv3"]["b"], s[f"{tag}_y2"],
                                 s[f"{tag}_out"]),
             }
@@ -181,7 +201,8 @@ def quantize_folded(folded: Dict, act_max: Dict[str, float], stem_mode: str = "s
     qh: Dict = {}
     for i in (1, 2, 3, 4):
         name = f"conv{i}"
-        qh[name] = _layer(head[name]["w"], head[name]["b"], s_in, s[f"head_conv{i}"])
+        qh[name] = with_wino(_layer(head[name]["w"], head[name]["b"], s_in, s[f"head_conv{i}"]),
+                             f"head_conv{i}", head[name], s_in, s[f"head_conv{i}"])
         s_in = s[f"head_conv{i}"]
     qh["s_out4"] = _f32(s["head_conv4"], dev)
     if fc1_mode == "int8":

@@ -122,9 +122,11 @@ def load() -> ctypes.CDLL:
         lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), vp]
         lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
                                         ctypes.POINTER(ci), vp]
+        lib.yolo_int8_wino.argtypes = [vp, vp, vp, vp, vp, vp, *([ci] * 7), vp]
         for fn in (lib.yolo_nms, lib.yolo_bn_stats, lib.yolo_bn_normalize,
                    lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx, lib.yolo_quant_s2d,
-                   lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain):
+                   lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
+                   lib.yolo_int8_wino):
             fn.restype = ci
         lib.yolo_cuda_error_string.argtypes = [ci]
         lib.yolo_cuda_error_string.restype = ctypes.c_char_p
