@@ -89,7 +89,30 @@ Phases:
    hooks and gives identical detections; predict --int8 --engine <it>; then
    python -m yolo_tpu_torch.bench_int8 --variants int8,wino;
 19. timing (information only): default vs wino (all 16) vs wino
-   (head_conv1, 3, 4) img/s at batch 1, 16, 64 and 256, in turns.
+   (head_conv1, 3, 4) img/s at batch 1, 16, 64 and 256, in turns;
+20. fused Adam update (csrc/adam_update.cu) vs its plain twin, bit for bit,
+   at (512, 256) and fc1's (50176, 4096); check_vs_torch_adam (the kernel
+   against step 8 of the port's Adam + clip_grad_norm_, rtol 1e-6); then
+   python -m yolo_tpu_torch.experiments.opt_update_microbench (kernel, twin,
+   torch.optim.Adam fused and foreach, in ms and GB/s);
+21. int8 dot + requant (csrc/int8_dot.cu) vs its twin, bit for bit, in the
+   five (K, N) cases at M = 4096 and M = 2**20 + 17 (a ragged tail; K = 300
+   rows only 4-byte aligned); then python -m
+   yolo_tpu_torch.experiments.mosaic_int8_dot (kernel and torch._int_mm);
+22. bf16 3x3 conv + BN statistics (csrc/bf16_conv_stats.cu) vs its twin at
+   the layer3 and layer4 identity-conv2 geometries, batch 2 and 128: y
+   within one bf16 ulp of max|twin|, the sums within 1e-5 of sum|acc| (of
+   sum acc^2), identical from run to run; then python -m
+   yolo_tpu_torch.experiments.conv_bn_fuse_bench (cuDNN conv, cuDNN conv +
+   batch_norm, the kernel, the kernel with stats + normalize, the kernel
+   with stats alone);
+23. bf16 fused bottleneck (csrc/bf16_bottleneck.cu) vs its twin at layer1's
+   widths (256 / 64), batch 2 and 64, H = W = 112 and 13: within 2 bf16 ulps
+   of max|twin|, no NaN; then python -m
+   yolo_tpu_torch.experiments.fused_block_pallas (kernel, twin, cuDNN's three
+   bf16 convs).
+Phases 20-23 drive each harness through its main() with its kernel's
+launch count zeroed just before and read just after.
 
 Any failure raises and exits nonzero. The last lines are the kernels' JSON
 record, the card line, and {"ok": true, "device": {...}}. Needs one CUDA
@@ -123,6 +146,7 @@ RAW_ATOL_REL, RAW_ATOL_ABS = 1e-4, 1e-5
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 FP32_FLOPS_S = 67e12
+BF16_FLOPS_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -1789,6 +1813,181 @@ def phase_wino_timing(q, thr: float, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 20
+def _harness(module, phase: int) -> tuple:
+    """(results, launches) of the harness's entry point at its defaults
+    (``python -m <module>``), its kernel's count zeroed just before."""
+    module.LAUNCHES = 0
+    log(f"[{phase}] python -m {module.__name__}")
+    res = module.main([])
+    if module.LAUNCHES < 1:
+        raise AssertionError(f"{module.__name__} launched its kernel {module.LAUNCHES} times")
+    return res, module.LAUNCHES
+
+
+def phase_adam(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch.experiments import opt_update_microbench as om
+
+    out = {"err": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(71)
+    for shape in ((512, 256), (om.ROWS, om.COLS)):
+        p, m, v, grad = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+        v.abs_()
+        scalars = om.bias_scalars(0.5, 8, 1e-4, "cuda")
+        ref = om.plain_update(p, m, v, grad, scalars)
+        got = om.cuda_update(p, m, v, grad, scalars)
+        for name, a, b in zip("pmv", got, ref):
+            out["err"] = max(out["err"], float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"adam kernel {name} at {shape} differs from its twin in "
+                                     f"{int((a != b).sum())} values")
+        del p, m, v, grad, ref, got
+    torch.cuda.empty_cache()
+    err = om.check_vs_torch_adam(device="cuda")
+    log(f"[20] {card}: adam kernel == twin bit for bit at (512, 256) and ({om.ROWS}, "
+        f"{om.COLS}); vs torch.optim.Adam + clip_grad_norm_ step 8: max |dp| {err:.3e}")
+    res, out["launches"] = _harness(om, 20)
+    flops, n_bytes = om.work(om.ROWS, om.COLS)
+    out["bound"] = bound(n_bytes, flops, FP32_FLOPS_S)
+    out["ms"], out["plain_ms"] = res["cuda_update"], res["plain_update"]
+    out["library_ms"] = res["adam_fused"]
+    log(f"[20] {card}: adam kernel {out['ms']:.4f} ms at ({om.ROWS}, {om.COLS}) (bound "
+        f"{out['bound'][0]:.4f} ms by {out['bound'][1]}, {100 * out['bound'][0] / out['ms']:.1f}%); "
+        f"twin {out['plain_ms']:.4f} ms; Adam(fused=True) {res['adam_fused']:.4f} ms, "
+        f"Adam(foreach=True) {res['adam_foreach']:.4f} ms; {out['launches']} launches")
+    return out
+
+
+# ---------------------------------------------------------------- phase 21
+def phase_int8_dot(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch.experiments import mosaic_int8_dot as md
+
+    out = {"err": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(72)
+
+    def operands(M, K, N):
+        a = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        m = (torch.rand(N, generator=g, device="cuda") + 0.5) * (2e-2 / K**0.5)
+        return a, w, m
+
+    for M in (4096, 2**20 + 17):
+        for name, K, N in md.CASES:
+            a, w, m = operands(M, K, N)
+            got, ref = md.int8_dot(a, w, m), md.int8_dot_reference(a, w, m)
+            out["err"] = max(out["err"], float((got.int() - ref.int()).abs().max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"int8 dot {name} at M = {M} differs from its twin in "
+                                     f"{int((got != ref).sum())} values")
+            del a, w, m, got, ref
+    log(f"[21] {card}: int8 dot == twin bit for bit in all {len(md.CASES)} cases at M = 4096 "
+        f"and {2**20 + 17}")
+    res, out["launches"] = _harness(md, 21)
+    out["ms"], out["library_ms"] = res["l2-im2col"]
+    a, w, m = operands(md.M_DEFAULT, 1152, 128)
+    out["plain_ms"] = cuda_ms(lambda: md.int8_dot_reference(a, w, m), iters=2, warmup=1)
+    ops, n_bytes = md.work(md.M_DEFAULT, 1152, 128)
+    out["bound"] = bound(n_bytes, ops, INT8_OPS_S)
+    log(f"[21] {card}: l2-im2col (M = {md.M_DEFAULT}, K = 1152, N = 128): kernel "
+        f"{out['ms']:.4f} ms (bound {out['bound'][0]:.4f} ms by {out['bound'][1]}, "
+        f"{100 * out['bound'][0] / out['ms']:.1f}%), twin {out['plain_ms']:.3f} ms, "
+        f"torch._int_mm {out['library_ms']:.4f} ms; {out['launches']} launches")
+    del a, w, m
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 22
+def phase_conv_stats(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch.experiments import bf16_ulp
+    from yolo_tpu_torch.experiments import conv_bn_fuse_bench as cb
+
+    out = {"err": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(73)
+    for name, h, c, k in cb.GEOMETRIES:
+        for n in (2, 128):
+            x = torch.randn((n, h, h, c), generator=g, device="cuda").to(torch.bfloat16)
+            w9 = (torch.randn((9, c, k), generator=g, device="cuda") / (9 * c) ** 0.5).to(
+                torch.bfloat16)
+            y_ref, s_ref = cb.conv3x3_bf16_reference(x, w9, stats=True)
+            acc = cb.conv3x3_acc_reference(x, w9).double()
+            scale = torch.stack([acc.abs().sum((0, 1, 2)), (acc * acc).sum((0, 1, 2))])
+            del acc
+            y0, _ = cb.conv3x3_bf16(x, w9)
+            y, s = cb.conv3x3_bf16(x, w9, stats=True)
+            _, s2 = cb.conv3x3_bf16(x, w9, stats=True)
+            err = float((y.float() - y_ref.float()).abs().max())
+            out["err"] = max(out["err"], err)
+            ulp = bf16_ulp(float(y_ref.float().abs().max()))
+            s_err = float(((s.double() - s_ref).abs() / scale).max())
+            if not (torch.equal(y0, y) and err <= ulp):
+                raise AssertionError(f"bf16 conv {name} batch {n}: y differs from the twin "
+                                     f"by {err} (one ulp {ulp})")
+            if not s_err <= 1e-5:
+                raise AssertionError(f"bf16 conv {name} batch {n}: stats off by {s_err:.3e} "
+                                     f"of sum|acc|")
+            if not torch.equal(s, s2):
+                raise AssertionError(f"bf16 conv {name} batch {n}: stats differ run to run")
+            log(f"[22] {card}: bf16 conv {name} batch {n}: y within {err:.3e} (one ulp "
+                f"{ulp:.3e}), stats within {s_err:.2e} of sum|acc|, identical run to run")
+            if name == "layer3_conv2" and n == 128:
+                out["plain_ms"] = cuda_ms(lambda: cb.conv3x3_bf16_reference(x, w9), iters=2,
+                                          warmup=1)
+            del x, w9, y_ref, s_ref, y0, y, s, s2
+    torch.cuda.empty_cache()
+    res, out["launches"] = _harness(cb, 22)
+    rows = res["layer3_conv2"]
+    out["ms"], out["library_ms"] = rows["cuda_conv"], rows["cudnn_conv"]
+    flops, n_bytes = cb.work(128, 28, 256, 256)
+    out["bound"] = bound(n_bytes, flops, BF16_FLOPS_S)
+    log(f"[22] {card}: layer3 conv2 b128: kernel {out['ms']:.4f} ms (bound "
+        f"{out['bound'][0]:.4f} ms by {out['bound'][1]}, {100 * out['bound'][0] / out['ms']:.1f}%),"
+        f" with stats {rows['cuda_conv_sums']:.4f} ms ({rows['cuda_conv_stats']:.4f} with "
+        f"the normalize), twin "
+        f"{out['plain_ms']:.3f} ms, cuDNN conv {rows['cudnn_conv']:.4f} ms, cuDNN conv + BN "
+        f"{rows['cudnn_conv_bn']:.4f} ms; {out['launches']} launches")
+    return out
+
+
+# ---------------------------------------------------------------- phase 23
+def phase_bf16_bottleneck(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch.experiments import bf16_ulp
+    from yolo_tpu_torch.experiments import fused_block_pallas as fb
+
+    out = {"err": 0.0}
+    for n, h in ((2, 112), (fb.N, 112), (2, 13), (fb.N, 13)):
+        args = fb.random_block(n, h, h, fb.CIN, fb.P, "cuda", seed=n + h)
+        ref = fb.reference(*args).float()
+        got = fb.fused_bottleneck(*args).float()
+        err = float((got - ref).abs().max())
+        out["err"] = max(out["err"], err)
+        tol = 2 * bf16_ulp(float(ref.abs().max()))
+        if bool(got.isnan().any()) or not err <= tol:
+            raise AssertionError(f"bf16 bottleneck batch {n}, {h}x{h}: |diff| {err} (2 ulps "
+                                 f"{tol}), NaN {bool(got.isnan().any())}")
+        log(f"[23] {card}: bf16 bottleneck batch {n}, {h}x{h}, {fb.CIN}/{fb.P}: |diff| <= "
+            f"{err:.3e} (2 ulps of max|twin| {tol:.3e}), no NaN")
+        del args, ref, got
+    torch.cuda.empty_cache()
+    res, out["launches"] = _harness(fb, 23)
+    out["ms"], out["plain_ms"], out["library_ms"] = res["kernel"], res["plain"], res["cudnn"]
+    flops, n_bytes = fb.work(fb.N, fb.H, fb.W, fb.CIN, fb.P)
+    out["bound"] = bound(n_bytes, flops, BF16_FLOPS_S)
+    log(f"[23] {card}: layer1 b{fb.N}: kernel {out['ms']:.4f} ms (bound {out['bound'][0]:.4f} "
+        f"ms by {out['bound'][1]}, {100 * out['bound'][0] / out['ms']:.1f}%), twin "
+        f"{out['plain_ms']:.3f} ms, cuDNN's three bf16 convs {out['library_ms']:.4f} ms; "
+        f"{out['launches']} launches")
+    return out
+
+
 def main() -> None:
     if not (REPO / "yolo_tpu_torch" / "csrc" / "nms.cu").is_file():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1831,6 +2030,17 @@ def main() -> None:
     q, thr, wino_launches = timed(18, phase_wino_slice, model)
     timed(19, phase_wino_timing, q, thr, card)
     del q, model
+    torch.cuda.empty_cache()
+    experiments = {
+        "adam_update": ("adam_update.cu", "experiments/opt_update_microbench.py:65",
+                        timed(20, phase_adam, card)),
+        "int8_dot": ("int8_dot.cu", "experiments/mosaic_int8_dot.py:55",
+                     timed(21, phase_int8_dot, card)),
+        "bf16_conv3x3": ("bf16_conv_stats.cu", "experiments/conv_bn_fuse_bench.py:47",
+                         timed(22, phase_conv_stats, card)),
+        "bf16_bottleneck": ("bf16_bottleneck.cu", "experiments/fused_block_pallas.py:31",
+                            timed(23, phase_bf16_bottleneck, card)),
+    }
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
 
     k_ms, p_ms, b_ms, b_by = kv["timings"][(SLICE_BATCH, 98)]
@@ -1950,6 +2160,23 @@ def main() -> None:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
+        })
+    # The four experiments/ kernels at their harnesses' geometries (Adam at
+    # fc1, the int8 dot at l2-im2col, the conv at layer3 without stats, the
+    # bottleneck at layer1); launches from each harness's own run.
+    for name, (src, line, r) in experiments.items():
+        record["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"yolo_tpu_torch/csrc/{src}",
+            "replaces": line,
+            "launches": r["launches"],
+            "max_abs_err": r["err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
         })
     print(json.dumps(record))
     print(card)

@@ -1,6 +1,9 @@
 """The CUDA kernels (NMS, the four fused-BN kernels, the int8 stem front, the
-int8 conv, the fused int8 bottleneck and stage chain, and the per-tap int8
-Winograd conv with its ablation modes) against their plain twins, on the card.
+int8 conv, the fused int8 bottleneck and stage chain, the per-tap int8
+Winograd conv with its ablation modes, and the four kernels of the ported
+experiments/ harnesses: the fused Adam update, the int8 dot + requant, the
+bf16 3x3 conv + BN statistics and the bf16 fused bottleneck) against their
+plain twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU and nvcc, and skip without
 them. Run them on the GPU machine with
@@ -12,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from yolo_tpu_torch.experiments import bf16_ulp
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.decode import Detections
 
@@ -512,3 +516,123 @@ def test_int8_engine_with_wino_convs_on_the_card(device):
     assert cuda_wino.LAUNCHES["full"] - winos == 8
     assert cuda_int8.LAUNCHES - convs == 1 + 3 * 8 + 4 + 4 + 1 - 8
     assert torch.equal(got, twin)
+
+
+# ------------------------------------------------------- experiments/ kernels
+@pytest.mark.parametrize("shape", [(512, 256), (7, 13), (1, 1), (3, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_adam_kernel_equals_plain_twin(device, shape):
+    from yolo_tpu_torch.experiments import opt_update_microbench as om
+
+    r = np.random.default_rng(shape[0])
+    p, m, v, g = (torch.from_numpy(r.standard_normal(shape, dtype=np.float32)).to(device)
+                  for _ in range(4))
+    v.abs_()
+    scalars = om.bias_scalars(0.7, 9, 3e-4, device)
+    ref = om.plain_update(p, m, v, g, scalars)
+    before = om.LAUNCHES
+    got = om.cuda_update(p, m, v, g, scalars)
+    torch.cuda.synchronize()
+    assert om.LAUNCHES == before + 1
+    assert got[0] is p and got[1] is m and got[2] is v  # in place
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_adam_kernel_matches_torch_adam(device):
+    from yolo_tpu_torch.experiments import opt_update_microbench as om
+
+    assert om.check_vs_torch_adam(device="cuda") < 1e-5
+
+
+@pytest.mark.parametrize("kn", [(300, 256), (192, 64), (1152, 128), (512, 512), (256, 64),
+                                (4, 2)], ids=lambda kn: f"K{kn[0]}N{kn[1]}")
+@pytest.mark.parametrize("M", [64, 4096 + 17])
+def test_int8_dot_kernel_equals_plain_twin(device, kn, M):
+    from yolo_tpu_torch.experiments import mosaic_int8_dot as md
+
+    K, N = kn
+    r = np.random.default_rng(K + M)
+    a = torch.from_numpy(r.integers(-127, 128, size=(M, K), dtype=np.int8))
+    w = torch.from_numpy(r.integers(-127, 128, size=(K, N), dtype=np.int8))
+    m = torch.from_numpy((r.uniform(0.5, 1.5, N) * (2e-2 / np.sqrt(K))).astype(np.float32))
+    ref = md.int8_dot_reference(a, w, m)
+    assert 0 < int((ref.abs() == 127).sum()) < ref.numel()  # both clips and the interior
+    before = md.LAUNCHES
+    got = md.int8_dot(a.to(device), w.to(device), m.to(device))
+    torch.cuda.synchronize()
+    assert md.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+# (n, H, W, C, K): the harness's layer3 geometry at batch 2, odd and
+# non-square images, C = 16 (a 32-value K stage spans two taps), K < 128.
+CONV_BF16_CASES = [(2, 28, 28, 256, 256), (1, 13, 11, 32, 24), (2, 8, 8, 16, 16),
+                   (3, 7, 7, 64, 136)]
+
+
+@pytest.mark.parametrize("case", CONV_BF16_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_bf16_conv_stats_kernel_equals_plain_twin(device, case):
+    from yolo_tpu_torch.experiments import conv_bn_fuse_bench as cb
+
+    n, h, w, c, k = case
+    r = np.random.default_rng(sum(case))
+    x = torch.from_numpy(r.standard_normal((n, h, w, c), dtype=np.float32)).to(device)
+    w9 = torch.from_numpy(r.standard_normal((9, c, k), dtype=np.float32) / np.sqrt(9 * c))
+    x, w9 = x.to(torch.bfloat16), w9.to(device, torch.bfloat16)
+    ref, ref_s = cb.conv3x3_bf16_reference(x, w9, stats=True)
+    acc = cb.conv3x3_acc_reference(x, w9).double()
+    before = cb.LAUNCHES
+    y0, _ = cb.conv3x3_bf16(x, w9)
+    y, s = cb.conv3x3_bf16(x, w9, stats=True)
+    _, s2 = cb.conv3x3_bf16(x, w9, stats=True)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 3
+    assert torch.equal(y0, y) and torch.equal(s, s2)  # stats identical run to run
+    err = (y.float() - ref.float()).abs().max()
+    assert float(err) <= bf16_ulp(float(ref.float().abs().max()))
+    tol = 1e-5 * torch.stack([acc.abs().sum((0, 1, 2)), (acc * acc).sum((0, 1, 2))])
+    assert bool(((s.double() - ref_s).abs() <= tol).all())
+
+
+# (N, H, W, CIN, P): layer1 widths at two sizes, odd H and W, an H that a
+# 16-row tile does not divide, the narrowest widths the kernel takes.
+BOTTLENECK_BF16_CASES = [(2, 16, 16, 256, 64), (1, 13, 13, 256, 64), (1, 34, 8, 32, 16),
+                         (2, 9, 20, 64, 32), (1, 7, 5, 16, 16)]
+
+
+@pytest.mark.parametrize("case", BOTTLENECK_BF16_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_bf16_bottleneck_kernel_equals_plain_twin(device, case):
+    from yolo_tpu_torch.experiments import fused_block_pallas as fb
+
+    args = fb.random_block(*case, device, seed=sum(case))
+    ref = fb.reference(*args).float()
+    before = fb.LAUNCHES
+    got = fb.fused_bottleneck(*args).float()
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    assert not bool(got.isnan().any())
+    assert float((got - ref).abs().max()) <= 2 * bf16_ulp(float(ref.abs().max()))
+
+
+def test_experiment_kernels_reject_what_they_do_not_take(device):
+    from yolo_tpu_torch.experiments import conv_bn_fuse_bench as cb
+    from yolo_tpu_torch.experiments import fused_block_pallas as fb
+    from yolo_tpu_torch.experiments import mosaic_int8_dot as md
+    from yolo_tpu_torch.experiments import opt_update_microbench as om
+
+    p = torch.zeros((4, 4), device=device)
+    with pytest.raises(ValueError, match="float32"):
+        om.cuda_update(p, p.clone(), p.clone(), p.double(), om.bias_scalars(1.0, 1, 1e-4, device))
+    with pytest.raises(ValueError, match="scalars"):
+        om.cuda_update(p, p.clone(), p.clone(), p.clone(), torch.zeros(3, device=device))
+    a = torch.zeros((8, 6), dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="K % 4"):
+        md.int8_dot(a, torch.zeros((6, 8), dtype=torch.int8, device=device),
+                    torch.ones(8, device=device))
+    x = torch.zeros((1, 8, 8, 12), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="C % 8"):
+        cb.conv3x3_bf16(x, torch.zeros((9, 12, 16), dtype=torch.bfloat16, device=device))
+    args = fb.random_block(1, 8, 8, 24, 16, device)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fb.fused_bottleneck(*args)

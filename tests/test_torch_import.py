@@ -46,6 +46,10 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch.serving.cuda_bottleneck, yolo_tpu_torch.bench_int8\n"
         "import yolo_tpu_torch.utils.timing, yolo_tpu_torch.serving.winograd\n"
         "import yolo_tpu_torch.serving.cuda_wino, yolo_tpu_torch.experiments.wino_ablate\n"
+        "import yolo_tpu_torch.experiments.opt_update_microbench\n"
+        "import yolo_tpu_torch.experiments.mosaic_int8_dot\n"
+        "import yolo_tpu_torch.experiments.conv_bn_fuse_bench\n"
+        "import yolo_tpu_torch.experiments.fused_block_pallas\n"
         "assert 'triton' not in sys.modules\n"
         "assert yolo_tpu_torch.YOLOInference is yolo_tpu_torch.inference.YOLOInference\n"
         "print('OK')\n"
@@ -86,8 +90,9 @@ def test_kernel_build_flags():
 
     assert (PORT / "csrc" / "nms.cu").is_file()
     assert [p.name for p in kernels.sources()] == [
-        "fused_bn.cu", "int8_bottleneck.cu", "int8_conv.cu", "int8_wino.cu", "nms.cu",
-        "quant_s2d.cu", "int8_common.cuh"]
+        "adam_update.cu", "bf16_bottleneck.cu", "bf16_conv_stats.cu", "fused_bn.cu",
+        "int8_bottleneck.cu", "int8_conv.cu", "int8_dot.cu", "int8_wino.cu", "nms.cu",
+        "quant_s2d.cu", "bf16_common.cuh", "int8_common.cuh"]
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
