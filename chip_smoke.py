@@ -16,7 +16,9 @@ Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
-2. build: nvcc compiles yolo_tpu_torch/csrc/*.cu for sm_90a;
+2. build: nvcc compiles yolo_tpu_torch/csrc/*.cu for sm_90a; the int8 and
+   bf16 conv kernels (the shared wgmma core, csrc/sm90_conv_core.cuh) must
+   show IGMMA / HGMMA and no IMMA / HMMA in cuobjdump's SASS;
 3. kernel vs plain: the NMS kernel's keep masks against its plain torch twin
    on CPU copies, over seeded batches (K = 98, 162, 392; eps 1e-6 and 0;
    t 0.4 and 0.5; tie storms; all-invalid rows), timed with CUDA events;
@@ -49,7 +51,13 @@ Phases:
    448x448 uint8 and float32 images, and the int8 conv at every distinct
    conv geometry and epilogue of the full-width engine at batch 2 (plus the
    direct 7x7 stem), int8 output and int32 accumulator, bit for bit against
-   the twins on the card; kernel, twin and torch._int_mm times;
+   the twins on the card, and likewise fc1 at batch 1, 16 and 17, every
+   conv that plan() splits at batch 16, the space-to-depth stem's 4-byte
+   gather at batch 16, and two forced split counts; kernel times at every
+   distinct geometry at batch 16 and 256 beside the bound, with the twin,
+   torch._int_mm (1x1 stride-1 convs) and every tile unsplit (the numbers
+   behind plan()) at batch 16, and the sums of kernel and bound over all
+   58 convs;
 12. int8 slice: YOLOInference(optimize="int8") calibrated on two seeded
    batches of 8, predict_batch_arrays on 16 seeded uint8 images: the stem
    kernel launched once and the conv kernel 58 times per forward (counts
@@ -100,7 +108,8 @@ Phases:
    rows only 4-byte aligned); then python -m
    yolo_tpu_torch.experiments.mosaic_int8_dot (kernel and torch._int_mm);
 22. bf16 3x3 conv + BN statistics (csrc/bf16_conv_stats.cu) vs its twin at
-   the layer3 and layer4 identity-conv2 geometries, batch 2 and 128: y
+   the layer3 and layer4 identity-conv2 geometries, batch 2 and 128, and
+   at 13x13 (batch 1 and 2): y
    within one bf16 ulp of max|twin|, the sums within 1e-5 of sum|acc| (of
    sum acc^2), identical from run to run; then python -m
    yolo_tpu_torch.experiments.conv_bn_fuse_bench (cuDNN conv, cuDNN conv +
@@ -113,6 +122,12 @@ Phases:
    bf16 convs).
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
+
+``python3 chip_smoke.py --int8-conv-times DIR`` instead times the int8 conv
+of the checkout at DIR (device time from CUDA graphs, and the wrapper's) at
+every distinct engine geometry at batch 16, with the sums over all 58
+convs: the way to hold two versions of the kernel against each other on
+one card.
 
 Any failure raises and exits nonzero. The last lines are the kernels' JSON
 record, the card line, and {"ok": true, "device": {...}}. Needs one CUDA
@@ -182,6 +197,34 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events, so the host's
+    cost of each call (the Python wrapper, the launch) is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
 
 
 def profile_kernels(fn, iters: int):
@@ -269,6 +312,41 @@ def phase_build() -> None:
             log(f"[2]   {kernel[:90]}: {line.split(':', 1)[1].strip()}; {spills}")
         elif "error" in line:
             log(f"[2]   {line.strip()}")
+    # The two conv kernels run on wgmma: IGMMA / HGMMA in their SASS, and no
+    # mma.sync (IMMA / HMMA) anywhere in them.
+    for fn, ops in sass_counts(path).items():
+        if "int8_conv_kernel<" in fn or "conv3x3_kernel<" in fn:
+            want, banned = ("IGMMA", "IMMA") if "int8" in fn else ("HGMMA", "HMMA")
+            log(f"[2]   SASS {fn[:70]}: " + ", ".join(f"{k} {v}" for k, v in sorted(ops.items())))
+            if not ops.get(want) or ops.get(banned):
+                raise AssertionError(f"{fn}: expected {want} and no {banned} in its SASS, got "
+                                     f"{ops}")
+
+
+def sass_counts(path: Path) -> dict:
+    """{kernel: {opcode: count}} of the tensor-core opcodes (IGMMA, HGMMA,
+    IMMA, HMMA) in the library's SASS, by ``cuobjdump -sass``; kernel names
+    demangled where c++filt is there."""
+    from yolo_tpu_torch.utils import kernels
+
+    cuobjdump = Path(kernels.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {}
+        elif fn is not None:
+            for op in ("IGMMA", "HGMMA", "IMMA", "HMMA"):
+                if op in line:
+                    counts[fn][op] = counts[fn].get(op, 0) + 1
+    demangle = shutil.which("c++filt")
+    if demangle:
+        names = subprocess.run([demangle], input="\n".join(counts), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    return counts
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1067,7 +1145,7 @@ def phase_int8_kernels(card: str) -> dict:
     from yolo_tpu_torch.serving import cuda_int8, cuda_stem
 
     dev = torch.device("cuda")
-    out = {"stem": {}, "conv": {}, "stem_err": 0.0, "conv_err": 0.0}
+    out = {"stem": {}, "conv": {}, "sums": {}, "stem_err": 0.0, "conv_err": 0.0}
     # --- kernel #6: the stem front, bit for bit at the slice's batches.
     r = np.random.default_rng(41)
     s_img = torch.tensor(0.0173, dtype=torch.float32, device=dev)
@@ -1103,9 +1181,67 @@ def phase_int8_kernels(card: str) -> dict:
     convs = _distinct(engine_convs(2)) + [
         ("stem (direct 7x7)", (2, SIZE, SIZE, 3), 64, 7, 2, 3, "relu")]
     for ci, conv in enumerate(convs):
-        x, wq, m, t, res, rr = _conv_operands(conv, 100 + ci)
-        ops_ = (x, wq, m, t, res, rr, cuda_int8.pack_weight(wq))
-        acc_ref = cuda_int8.conv_acc_reference(x, wq, conv[4], conv[5])
+        _check_conv(conv, 100 + ci, out)
+    log(f"[11] int8 conv: {len(convs)} distinct geometries (every conv of the engine at "
+        f"batch 2 and the direct stem), own epilogue and int32 accumulator == twin bit for bit")
+    # Split-K and the 4-byte gather at the geometries that take them: fc1 at
+    # M = 1, 16, 17; every conv plan() splits at batch 16; the s2d stem at
+    # batch 16; and fc1 and head.conv3 forced to more splits than planned.
+    split_cases = [(c, None) for b in (1, 17) for c in engine_convs(b) if c[0] == "fc1"]
+    split_cases += [(c, None) for c in _distinct(engine_convs(SLICE_BATCH))
+                    if c[0] == "stem" or _plan(c)[1] > 1]
+    split_cases += [(c, s) for c in engine_convs(SLICE_BATCH) for s in (7, 4)
+                    if (c[0], s) in (("fc1", 7), ("head.conv3", 4))]
+    for ci, (conv, splits) in enumerate(split_cases):
+        tile, planned = _check_conv(conv, 300 + ci, out, splits)
+        log(f"[11] int8 conv {conv[0]} batch {conv[1][0]}: tile {cuda_int8.TILES[tile]}, "
+            f"{splits or planned} K split(s){' (forced)' if splits else ''}"
+            f"{', 4-byte gather' if conv[1][3] % 16 else ''}: == twin bit for bit")
+
+    # Times at the slice's batch and at 256: every distinct geometry's kernel
+    # with its bound; at batch 16 also torch._int_mm (the accumulator of a 1x1
+    # stride-1 conv) and the twin where named. Sums over all 58 convs.
+    for batch in (SLICE_BATCH, 256):
+        times = {}
+        for ci, conv in enumerate(_distinct(engine_convs(batch))):
+            times[_geometry(conv)] = _time_conv(conv, 200 + ci, card, out, batch == SLICE_BATCH)
+        all58 = engine_convs(batch)
+        k_sum = sum(times[_geometry(c)][0] for c in all58)
+        b_sum = sum(times[_geometry(c)][2] for c in all58)
+        out["sums"][batch] = (k_sum, b_sum)
+        log(f"[11] {card}: int8 conv, all {len(all58)} convs of the engine at batch {batch}: "
+            f"kernel {k_sum:.4f} ms, bounds {b_sum:.4f} ms ({100 * b_sum / k_sum:.1f}%)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _geometry(conv) -> tuple:
+    return (conv[1][1:], *conv[2:])
+
+
+def _plan(conv):
+    from yolo_tpu_torch.serving import cuda_int8
+
+    _, (n, h, w, cin), cout, k, stride, pad, _ = conv
+    ho, wo = cuda_int8.out_size(h, w, k, k, stride, pad)
+    return cuda_int8.plan(n * ho * wo, cout, k * k * cin)
+
+
+def _check_conv(conv, seed: int, out: dict, splits=None):
+    """The conv's own epilogue and its int32 accumulator == the float64 twin,
+    bit for bit, with plan()'s splits or ``splits``; (tile, planned splits)."""
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_int8
+
+    x, wq, m, t, res, rr = _conv_operands(conv, seed)
+    ops_ = (x, wq, m, t, res, rr, cuda_int8.pack_weight(wq))
+    acc_ref = cuda_int8.conv_acc_reference(x, wq, conv[4], conv[5])
+    tile, planned = _plan(conv)
+    plan = cuda_int8.plan
+    if splits is not None:
+        cuda_int8.plan = lambda m_rows, cout, k: (tile, splits)
+    try:
         for mode in (conv[6], "acc"):
             got = _conv_call(conv, ops_, mode)()
             extra = dict(res=res, r=rr) if mode == "residual" else {}
@@ -1115,42 +1251,62 @@ def phase_int8_kernels(card: str) -> dict:
                                       float((got.double() - ref.double()).abs().max()))
             if got.dtype != ref.dtype or not torch.equal(got, ref):
                 diff = (got.double() - ref.double()).abs()
-                raise AssertionError(f"int8 conv {conv[0]} ({mode}) differs from its twin in "
+                raise AssertionError(f"int8 conv {conv[0]} ({mode}, batch {conv[1][0]}, splits "
+                                     f"{splits or planned}) differs from its twin in "
                                      f"{int((diff > 0).sum())} values, max {float(diff.max())}")
-        del acc_ref, got, ref, ops_
-    log(f"[11] int8 conv: {len(convs)} distinct geometries (every conv of the engine at "
-        f"batch 2 and the direct stem), own epilogue and int32 accumulator == twin bit for bit")
+    finally:
+        cuda_int8.plan = plan
+    return tile, planned
 
-    # Times at the slice's batch: every distinct geometry's kernel; the twin
-    # and torch._int_mm (the accumulator of a 1x1 conv) where named.
-    for ci, conv in enumerate(_distinct(engine_convs(SLICE_BATCH))):
-        x, wq, m, t, res, rr = _conv_operands(conv, 200 + ci)
-        ops_ = (x, wq, m, t, res, rr, cuda_int8.pack_weight(wq))
-        (n, h, w, cin), cout, k, stride, pad, mode = conv[1:]
-        k_ms = cuda_ms(_conv_call(conv, ops_), iters=10)
-        ops, n_bytes = cuda_int8.work(n, h, w, cin, cout, k, k, stride, pad, mode)
-        b_ms, b_by = bound(n_bytes, ops, INT8_OPS_S)
-        p_ms = lib_ms = None
-        line = ""
-        if conv[0] in ("layer1.1.conv1", "layer4.1.conv1", "layer2.0.conv2"):
-            p_ms = cuda_ms(_conv_call(conv, ops_, plain=True), iters=3, warmup=1)
-            line = f"; twin {p_ms:.3f} ms"
-        if k == 1 and stride == 1 and conv[0] != "fc1" and conv[0] in (
-                "layer1.1.conv1", "layer4.1.conv1"):
-            a, b = x.reshape(-1, cin), ops_[6].t()  # (M, K) row-major, (K, N) column-major
-            lib_ms = cuda_ms(lambda: torch._int_mm(a, b), iters=10)
-            acc = _conv_call(conv, ops_, "acc")().reshape(-1, cout)
-            if not torch.equal(torch._int_mm(a, b), acc):
-                raise AssertionError(f"torch._int_mm and the kernel's accumulator differ "
-                                     f"at {conv[0]}")
+
+def _time_conv(conv, seed: int, card: str, out: dict, with_library: bool):
+    """(kernel ms, twin ms, bound ms, bound by, torch._int_mm ms, ops) of one
+    geometry, logged; the twin and the library call where timed, else None."""
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_int8
+
+    x, wq, m, t, res, rr = _conv_operands(conv, seed)
+    ops_ = (x, wq, m, t, res, rr, cuda_int8.pack_weight(wq))
+    (n, h, w, cin), cout, k, stride, pad, mode = conv[1:]
+    w_ms = cuda_ms(_conv_call(conv, ops_), iters=10)  # the wrapper's calls back to back
+    k_ms = graph_ms(_conv_call(conv, ops_), iters=10 if n > SLICE_BATCH else 20)
+    ops, n_bytes = cuda_int8.work(n, h, w, cin, cout, k, k, stride, pad, mode)
+    b_ms, b_by = bound(n_bytes, ops, INT8_OPS_S)
+    p_ms = lib_ms = None
+    line = ""
+    if with_library and conv[0] in ("layer1.1.conv1", "layer4.1.conv1", "layer2.0.conv2"):
+        p_ms = cuda_ms(_conv_call(conv, ops_, plain=True), iters=3, warmup=1)
+        line = f"; twin {p_ms:.3f} ms"
+    if with_library and k == 1 and stride == 1:
+        a, b = x.reshape(-1, cin), ops_[6].t()  # (M, K) row-major, (K, N) column-major
+        try:
+            acc = torch._int_mm(a, b)
+        except RuntimeError as e:  # _int_mm takes M > 16 only on some builds
+            line += f"; torch._int_mm refused ({str(e).splitlines()[0][:60]})"
+        else:
+            lib_ms = graph_ms(lambda: torch._int_mm(a, b))
+            if not torch.equal(acc, _conv_call(conv, ops_, "acc")().reshape(-1, cout)):
+                raise AssertionError(f"torch._int_mm and the kernel's accumulator differ at "
+                                     f"{conv[0]}")
             line += f"; torch._int_mm (accumulator only) {lib_ms:.4f} ms"
+    tile, splits = _plan(conv)
+    if with_library:  # every tile without a split: the numbers behind plan()
+        plan, sweep = cuda_int8.plan, []
+        try:
+            for ti, shape in enumerate(cuda_int8.TILES):
+                cuda_int8.plan = lambda m_rows, co, kk, ti=ti: (ti, 1)
+                sweep.append(f"{shape[0]}x{shape[1]} {graph_ms(_conv_call(conv, ops_)):.4f}")
+        finally:
+            cuda_int8.plan = plan
+        line += "; unsplit tiles " + ", ".join(sweep)
+    if n == SLICE_BATCH:
         out["conv"][conv[0]] = (k_ms, p_ms, b_ms, b_by, lib_ms, ops)
-        log(f"[11] {card}: int8 conv {conv[0]} {tuple(conv[1])} -> {cout}, {k}x{k}/s{stride} "
-            f"{mode}, batch {SLICE_BATCH}: {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOPS; bound "
-            f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / k_ms:.1f}%){line}")
-        del ops_, x, wq, res
-    torch.cuda.empty_cache()
-    return out
+    log(f"[11] {card}: int8 conv {conv[0]} {tuple(conv[1])} -> {cout}, {k}x{k}/s{stride} "
+        f"{mode}, batch {n}, tile {cuda_int8.TILES[tile]} x {splits} split(s): {k_ms:.4f} ms "
+        f"device ({ops / k_ms / 1e9:.1f} TOPS; bound {b_ms:.4f} ms by {b_by}, "
+        f"{100 * b_ms / k_ms:.1f}%), wrapper {w_ms:.4f} ms{line}")
+    return k_ms, p_ms, b_ms, b_by, lib_ms, ops
 
 
 # ---------------------------------------------------------------- phase 12
@@ -1910,8 +2066,9 @@ def phase_conv_stats(card: str) -> dict:
 
     out = {"err": 0.0}
     g = torch.Generator(device="cuda").manual_seed(73)
-    for name, h, c, k in cb.GEOMETRIES:
-        for n in (2, 128):
+    for name, h, c, k, batches in [(*geo, (2, 128)) for geo in cb.GEOMETRIES] + [
+            ("13x13", 13, 256, 256, (1, 2))]:
+        for n in batches:
             x = torch.randn((n, h, h, c), generator=g, device="cuda").to(torch.bfloat16)
             w9 = (torch.randn((9, c, k), generator=g, device="cuda") / (9 * c) ** 0.5).to(
                 torch.bfloat16)
@@ -1986,6 +2143,34 @@ def phase_bf16_bottleneck(card: str) -> dict:
         f"{out['plain_ms']:.3f} ms, cuDNN's three bf16 convs {out['library_ms']:.4f} ms; "
         f"{out['launches']} launches")
     return out
+
+
+def int8_conv_times(root: Path) -> None:
+    """Device and wrapper ms of the int8 conv at every distinct geometry of
+    the engine at batch 16, and their sums over all 58 convs, through the
+    yolo_tpu_torch package of the checkout at ``root`` (an earlier commit
+    unpacked beside this one, say), so that two versions of the kernel are
+    timed the same way on one card."""
+    sys.path.insert(0, str(root.resolve()))
+    card = phase_environment()
+    from yolo_tpu_torch.serving import cuda_int8
+
+    if not Path(cuda_int8.__file__).resolve().is_relative_to(root.resolve()):
+        raise SystemExit(f"chip_smoke: imported {cuda_int8.__file__}, not {root}'s package")
+    times = {}
+    for ci, conv in enumerate(_distinct(engine_convs(SLICE_BATCH))):
+        x, wq, m, t, res, rr = _conv_operands(conv, 200 + ci)
+        ops_ = (x, wq, m, t, res, rr, cuda_int8.pack_weight(wq))
+        dev_ms = graph_ms(_conv_call(conv, ops_))
+        wrap_ms = cuda_ms(_conv_call(conv, ops_), iters=10)
+        times[_geometry(conv)] = (dev_ms, wrap_ms)
+        log(f"[times {root.name}] {card}: int8 conv {conv[0]} batch {SLICE_BATCH}: "
+            f"{dev_ms:.4f} ms device, wrapper {wrap_ms:.4f} ms")
+        del ops_, x, wq, res
+    all58 = engine_convs(SLICE_BATCH)
+    log(f"[times {root.name}] {card}: int8 conv, all {len(all58)} convs at batch "
+        f"{SLICE_BATCH}: {sum(times[_geometry(c)][0] for c in all58):.4f} ms device, "
+        f"{sum(times[_geometry(c)][1] for c in all58):.4f} ms wrapper")
 
 
 def main() -> None:
@@ -2188,4 +2373,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--int8-conv-times":
+        int8_conv_times(Path(sys.argv[2]))
+    else:
+        main()

@@ -214,7 +214,10 @@ def test_quant_s2d_kernel_equals_plain_twin(device, shape, dtype):
 
 # (N, H, W, Cin, Cout, K, stride, pad): every geometry class of the engine,
 # with M and Cout not multiples of the tiles, ragged K (Cin = 3, 12) and
-# fc1 as a 1x1 conv over a wide channel axis.
+# fc1 as a 1x1 conv over a wide channel axis; fc1-like convs at M = 1, 16
+# and 17 (split-K), the space-to-depth stem's 4-byte gather at an odd width
+# (edge columns in the padding), and a persistent walk with more output
+# tiles than the card has SMs.
 CONV_CASES = [
     (2, 16, 16, 12, 64, 4, 1, ((2, 1), (2, 1))),  # s2d stem
     (2, 30, 30, 3, 64, 7, 2, 3),                  # direct stem
@@ -224,6 +227,11 @@ CONV_CASES = [
     (2, 12, 12, 128, 128, 3, 2, 1),               # 3x3 stride 2 (the TPU kernel's case)
     (5, 1, 1, 3136, 96, 1, 1, 0),                 # fc1 as 1x1
     (1, 5, 5, 32, 2, 3, 1, 1),                    # Cout = 2
+    (1, 1, 1, 4096, 96, 1, 1, 0),                 # fc1-like, M = 1
+    (16, 1, 1, 4096, 96, 1, 1, 0),                # fc1-like, M = 16
+    (17, 1, 1, 4096, 96, 1, 1, 0),                # fc1-like, M = 17
+    (1, 9, 13, 12, 64, 4, 1, ((2, 1), (2, 1))),   # s2d stem, odd width
+    (4, 56, 56, 64, 256, 1, 1, 0),                # 196 tiles of 128x128: persistent walk
 ]
 
 
@@ -240,13 +248,11 @@ def _conv_operands(case, seed=0):
     return x, wq, m, t
 
 
-@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c[:7])))
-@pytest.mark.parametrize("tile", [0, 1, 2])
-def test_int8_conv_kernel_equals_plain_twin(device, monkeypatch, case, tile):
+def _check_conv_modes(device, case, seed):
+    """Every epilogue of the kernel at ``case`` == the float64 twin, bit for bit."""
     from yolo_tpu_torch.serving import cuda_int8
 
-    monkeypatch.setattr(cuda_int8, "pick_tile", lambda m_rows, cout: tile)
-    x, wq, m, t = _conv_operands(case, seed=tile)
+    x, wq, m, t = _conv_operands(case, seed=seed)
     stride, pad = case[6], case[7]
     ho, wo = cuda_int8.out_size(x.shape[1], x.shape[2], wq.shape[0], wq.shape[1], stride, pad)
     res = torch.from_numpy(np.random.default_rng(7).integers(
@@ -264,6 +270,31 @@ def test_int8_conv_kernel_equals_plain_twin(device, monkeypatch, case, tile):
         assert cuda_int8.LAUNCHES == before + 1
         assert got.dtype == ref.dtype and got.shape == ref.shape, mode
         assert torch.equal(got.cpu(), ref), mode
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c[:7])))
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
+def test_int8_conv_kernel_equals_plain_twin(device, monkeypatch, case, tile):
+    from yolo_tpu_torch.serving import cuda_int8
+
+    assert len(cuda_int8.TILES) == 4
+    monkeypatch.setattr(cuda_int8, "plan", lambda m_rows, cout, k: (tile, 1))
+    _check_conv_modes(device, case, seed=tile)
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "x".join(map(str, c[:7])))
+def test_int8_conv_split_k_equals_plain_twin(device, monkeypatch, case):
+    """Every divisor of the K stages up to 8 as the splits, on plan()'s tile:
+    the int32 partials are exact, so every split gives the same bits."""
+    from yolo_tpu_torch.serving import cuda_int8
+
+    n, h, w, cin, cout, k, stride, pad = case
+    ho, wo = cuda_int8.out_size(h, w, k, k, stride, pad)
+    tile, _ = cuda_int8.plan(n * ho * wo, cout, k * k * cin)
+    stages = cuda_int8.k_stages(k * k * cin)
+    for splits in [d for d in range(1, 9) if stages % d == 0]:
+        monkeypatch.setattr(cuda_int8, "plan", lambda m_rows, co, kk, s=splits: (tile, s))
+        _check_conv_modes(device, case, seed=splits)
 
 
 def test_int8_conv_rejects_what_the_kernel_does_not_take(device):
@@ -567,8 +598,10 @@ def test_int8_dot_kernel_equals_plain_twin(device, kn, M):
 
 # (n, H, W, C, K): the harness's layer3 geometry at batch 2, odd and
 # non-square images, C = 16 (a 32-value K stage spans two taps), K < 128.
+# H = 13 at n = 1 at the harness's width; 196 tiles of 128x128 (a
+# persistent walk over more tiles than SMs).
 CONV_BF16_CASES = [(2, 28, 28, 256, 256), (1, 13, 11, 32, 24), (2, 8, 8, 16, 16),
-                   (3, 7, 7, 64, 136)]
+                   (3, 7, 7, 64, 136), (1, 13, 13, 256, 256), (32, 28, 28, 32, 128)]
 
 
 @pytest.mark.parametrize("case", CONV_BF16_CASES, ids=lambda c: "x".join(map(str, c)))

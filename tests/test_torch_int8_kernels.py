@@ -144,8 +144,9 @@ def test_pack_weight_layout():
     assert wk.shape == (8, 192) and wk.is_contiguous()
     assert torch.equal(wk[:, :147], wq.permute(3, 0, 1, 2).reshape(8, 147))
     assert not wk[:, 147:].any()
-    assert [cuda_int8.pick_tile(m, c) for m, c in
-            ((16, 4096), (50176 * 16, 64), (12544 * 16, 256))] == [2, 1, 0]
+    assert [cuda_int8.plan(m, c, k) for m, c, k in
+            ((16, 4096, 50176), (50176 * 16, 64, 192), (12544 * 16, 256, 64),
+             (784 * 16, 1024, 256))] == [(2, 8), (3, 1), (3, 1), (0, 1)]
 
 
 def test_int8_conv_wrapper_takes_the_twin_on_the_cpu():

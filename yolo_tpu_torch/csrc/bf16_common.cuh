@@ -1,9 +1,10 @@
-// Device helpers shared by the bf16 kernels (bf16_conv_stats.cu,
-// bf16_bottleneck.cu): 16-byte cp.async, ldmatrix, the bf16 tensor-core
-// product with float32 accumulators, and round-to-nearest-even bf16 packing.
+// Device helpers of the bf16 kernels: 16-byte cp.async, ldmatrix and the
+// mma.sync bf16 product with float32 accumulators for bf16_bottleneck.cu,
+// and round-to-nearest-even bf16 packing for it and bf16_conv_stats.cu
+// (whose mainloop is sm90_conv_core.cuh's wgmma).
 //
-// Shared tiles hold rows of K-contiguous bf16 values, 64 bytes (32 values)
-// of K per pipeline stage. The m16n8k16 fragments are loaded with ldmatrix
+// In bf16_bottleneck.cu, shared tiles hold rows of K-contiguous bf16
+// values, 64 bytes (32 values) of K per pipeline stage. The m16n8k16 fragments are loaded with ldmatrix
 // x4: for A (16 rows x 16 K) lane l points at row l % 16, 16 bytes on for
 // l >= 16; for B (two 8-channel tiles x 16 K, stored as rows of output
 // channels) lane l points at channel b_lane_row(l), byte b_lane_byte(l).

@@ -1,5 +1,5 @@
 // bf16 3x3 convolution with optional BatchNorm statistics in its epilogue,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), on the shared wgmma mainloop of sm90_conv_core.cuh.
 //
 // Replaces the TPU kernel experiments/conv_bn_fuse_bench.py::_kernel (entry
 // pallas_conv, from build): a 3x3 / stride 1 / SAME conv of NHWC bf16 x
@@ -13,22 +13,30 @@
 //
 // As a GEMM: M = n*H*W pixels, N = K output channels, depth 9*C in (kh, kw,
 // c) order. The weights arrive packed K-major as (K, Kpad) bf16, Kpad = 9C
-// rounded up to 32 with zeros (the wrapper packs them once).
+// rounded up to 32 with zeros (the wrapper packs them once); a 128-byte
+// stage zero-fills what lies past Kpad.
 //
 // The TPU kernel carried the statistics across its sequential grid in one
-// output block; thread blocks here run in no order, so each block writes
-// its partial sums to a (G, 2, K) float32 workspace (G = the grid's row
-// blocks) and a second kernel sums the G partials per channel in a fixed
-// order, in float64. No atomics: two runs give identical sums.
+// output block; thread blocks here run in no order and walk several tiles
+// each, so every 64-row slab of the output (one consumer warpgroup's share
+// of a 128-row tile) writes its partial sums to a (G, 2, K) float32
+// workspace at its slab index, G = ceil(n*H*W / 64), and a second kernel
+// sums the G partials per channel in a fixed order, in float64. No
+// atomics: two runs give identical sums, and no partial is written twice
+// or skipped whichever block walks which tile.
 //
 // What bounds it: the bf16 tensor cores. layer3's conv2 at batch 128 (28x28,
 // 256 -> 256) is 118 GFLOP, 0.120 ms at 989 TFLOP/s, against 0.10 GB, 0.031
-// ms at 3.35 TB/s. Design, simple first: a 128 x 128 output tile per block,
-// 8 warps of mma.sync.m16n8k16 bf16 (2 across rows x 4 across columns, 64 x
-// 32 each), fragments by ldmatrix, two cp.async stages of 32 K values with
-// the im2col gather on the fly (16-byte pieces, zero-filled in the padding
-// and past 9C), 80-byte shared rows so ldmatrix hits 32 banks. Not done:
-// wgmma, TMA, a deeper pipeline.
+// ms at 3.35 TB/s. The earlier design (mma.sync m16n8k16, two cp.async
+// stages of 64 bytes of K, a block-wide barrier every stage) ran at ~200
+// TFLOP/s. Now: 128 x 256 tiles of wgmma.m64n256k16 from 128-byte-swizzled
+// stages (64 bf16 of K), a 4-stage mbarrier ring filled with 16-byte
+// cp.async by a producer warpgroup (the im2col gather on the fly,
+// zero-filled in the padding), two consumer warpgroups, a persistent grid
+// so that one tile's epilogue (y and the sums) overlaps the next tile's
+// loads. At 128 x 128 tiles the ring's fill from L2 set the pace; 128 x
+// 256 tiles move three quarters of the bytes a FLOP (channels past K are
+// zero-filled and masked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,181 +44,97 @@
 #include <cstdint>
 
 #include "bf16_common.cuh"
+#include "sm90_conv_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128, kBN = 128;
-constexpr int kWM = 2, kWN = 4;                   // warps across rows, columns
-constexpr int kWTM = kBM / kWM, kWTN = kBN / kWN;  // warp tile 64 x 32
-constexpr int kMI = kWTM / 16, kNI = kWTN / 8;     // mma tiles per warp
-constexpr int kBK = 32;                           // K values per stage (64 bytes)
-constexpr int kRowB = kBK * 2 + 16;               // shared row stride, bytes
-constexpr int kStrands = 8;                       // finalize: partial sums per channel
+constexpr int kWG = 2, kBM = 64 * kWG, kBN = 256;  // output tiles of 128 x 256
+constexpr int kSlab = 64;                // rows of one stats partial
+constexpr int kThreads = sm90::kWgThreads * (kWG + 1);
+constexpr int kStrands = 8;  // finalize: partial sums per channel
 
-struct ConvArgs {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* w;
+struct Out {
   __nv_bfloat16* y;
-  float* ws;
-  int N, H, W, C, K, Kdim, Kpad;
+  float* ws;  // (G, 2, K) partial sums, with stats
   long long M;
+  int K, G;
 };
 
 template <bool kStats>
-__global__ void __launch_bounds__(kThreads) conv3x3_kernel(const ConvArgs a) {
-  __shared__ __align__(16) char As[2][kBM * kRowB];
-  __shared__ __align__(16) char Bs[2][kBN * kRowB];
-  __shared__ float red[2][kWM][kBN];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int warp_m = warp / kWN, warp_n = warp % kWN;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int chunk = tid % 4;  // this thread's 16 bytes (8 values) of every stage row
-  constexpr int kPer = kBM * 4 / kThreads;  // rows a thread loads per stage (A and B alike)
-
-  // This thread's A rows: the pixel's image offset and coordinates, or n = -1 past M.
-  long long img[kPer];
-  int oh[kPer], ow[kPer];
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const sm90::Geom g, const Out o) {
+  __shared__ float red[kWG][2][4][kBN];  // per warpgroup: sums of each warp's 16 rows
+  auto epi = [&](const float (&acc)[kBN / 2], const sm90::Unit& un, int wg, uint8_t*) {
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int tg = lane % 4;
+    const long long row0 = un.m0 + wg * 64 + warp * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const long long m = m0 + tid / 4 + i * (kThreads / 4);
-    const bool valid = m < a.M;
-    const long long mm = valid ? m : 0;
-    const int hw = a.H * a.W;
-    const long long n = mm / hw;
-    const int rem = static_cast<int>(mm - n * hw);
-    img[i] = valid ? n * hw : -1;
-    oh[i] = rem / a.W;
-    ow[i] = rem - oh[i] * a.W;
-  }
-
-  auto load_stage = [&](int kt, int st) {
-    const int k0 = kt * kBK + chunk * 8;
-    const int tap = k0 / a.C, ci = k0 - tap * a.C;  // C % 8 == 0: 8 values, one tap
-    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = un.n0 + 8 * j + 2 * tg;
+      if (col >= o.K) continue;  // K % 8 == 0, so col + 1 < K too
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int r = tid / 4 + i * (kThreads / 4);
-      const int ih = oh[i] + dh, iw = ow[i] + dw;
-      const bool ok = img[i] >= 0 && k0 < a.Kdim && ih >= 0 && ih < a.H && iw >= 0 && iw < a.W;
-      const __nv_bfloat16* src =
-          ok ? a.x + (img[i] + static_cast<long long>(ih) * a.W + iw) * a.C + ci : a.x;
-      cp_async16(&As[st][r * kRowB + chunk * 16], src, ok);
+      for (int h = 0; h < 2; ++h) {
+        const long long row = row0 + 8 * h;
+        if (row < o.M)
+          *reinterpret_cast<unsigned*>(o.y + row * o.K + col) =
+              pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
     }
+    if constexpr (kStats) {
+      // Rows past M hold zero accumulators (their A rows were zero-filled)
+      // and add nothing. Per thread: its two rows; then across the 8 lanes
+      // that share tg; then across the 4 warps, in a fixed order.
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int r = tid / 4 + i * (kThreads / 4);
-      const bool ok = n0 + r < a.K;
-      const __nv_bfloat16* src =
-          ok ? a.w + static_cast<long long>(n0 + r) * a.Kpad + kt * kBK + chunk * 8 : a.w;
-      cp_async16(&Bs[st][r * kRowB + chunk * 16], src, ok);
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v0 = acc[4 * j + c], v1 = acc[4 * j + 2 + c];
+          float s = v0 + v1, q = v0 * v0 + v1 * v1;
+#pragma unroll
+          for (int off = 4; off < 32; off *= 2) {
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+            q += __shfl_xor_sync(0xffffffffu, q, off);
+          }
+          if (lane < 4) {
+            red[wg][0][warp][8 * j + 2 * tg + c] = s;
+            red[wg][1][warp][8 * j + 2 * tg + c] = q;
+          }
+        }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(sm90::kWgThreads) : "memory");
+      const long long slab = un.m0 / kSlab + wg;
+#pragma unroll
+      for (int col = threadIdx.x % sm90::kWgThreads; col < kBN; col += sm90::kWgThreads) {
+        if (slab < o.G && un.n0 + col < o.K) {
+          float s = 0.0f, q = 0.0f;
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            s += red[wg][0][w][col];
+            q += red[wg][1][w][col];
+          }
+          o.ws[(slab * 2) * o.K + un.n0 + col] = s;
+          o.ws[(slab * 2 + 1) * o.K + un.n0 + col] = q;
+        }
+      }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(sm90::kWgThreads) : "memory");
     }
   };
+  auto pre = [](const sm90::Unit&, int, uint8_t*) {};
+  sm90::run<2, kWG, kBN, sm90::kVec16, 0, float>(g, epi, pre);
+}
 
-  float acc[kMI][kNI][4];
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  const int nk = a.Kpad / kBK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait_all();
-    __syncthreads();  // stage kt is in shared memory; everyone is done with stage kt-1
-    if (kt + 1 < nk) {
-      load_stage(kt + 1, (kt + 1) & 1);
-      cp_async_commit();
-    }
-    const char* as = As[kt & 1];
-    const char* bs = Bs[kt & 1];
-#pragma unroll
-    for (int kb = 0; kb < kBK * 2; kb += 32) {  // two k16 steps, 32 bytes each
-      unsigned af[kMI][4], bf[kNI][2];
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-        ldmatrix_x4(af[i], as + (warp_m * kWTM + i * 16 + lane % 16) * kRowB + kb +
-                               a_lane_byte(lane));
-#pragma unroll
-      for (int j = 0; j < kNI; j += 2) {
-        unsigned q[4];
-        ldmatrix_x4(q, bs + (warp_n * kWTN + j * 8 + b_lane_row(lane)) * kRowB + kb +
-                           b_lane_byte(lane));
-        bf[j][0] = q[0];
-        bf[j][1] = q[1];
-        bf[j + 1][0] = q[2];
-        bf[j + 1][1] = q[3];
-      }
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-#pragma unroll
-        for (int j = 0; j < kNI; ++j) mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
-  }
-
-  // Epilogue: accumulator element e of tile (i, j) is row g (+8 for e >= 2),
-  // column 2*tg (+1 for odd e) of that tile.
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = m0 + warp_m * kWTM + i * 16 + g + 8 * h;
-      if (row >= a.M) continue;
-#pragma unroll
-      for (int j = 0; j < kNI; ++j) {
-        const int col = n0 + warp_n * kWTN + j * 8 + 2 * tg;
-        if (col >= a.K) continue;  // K % 8 == 0, so col + 1 < K too
-        *reinterpret_cast<unsigned*>(a.y + row * a.K + col) =
-            pack_bf16x2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-
-  if constexpr (kStats) {
-    // Rows past M hold zero accumulators (their A rows were zero-filled) and
-    // add nothing. Per thread: its 2*kMI rows; then across the 8 lanes that
-    // share tg; then across the kWM warps of a column, in a fixed order.
-#pragma unroll
-    for (int j = 0; j < kNI; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float s = 0.0f, q = 0.0f;
-#pragma unroll
-        for (int i = 0; i < kMI; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v = acc[i][j][2 * h + c];
-            s += v;
-            q += v * v;
-          }
-#pragma unroll
-        for (int off = 4; off < 32; off *= 2) {
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-          q += __shfl_xor_sync(0xffffffffu, q, off);
-        }
-        if (g == 0) {
-          const int col = warp_n * kWTN + j * 8 + 2 * tg + c;
-          red[0][warp_m][col] = s;
-          red[1][warp_m][col] = q;
-        }
-      }
-    __syncthreads();
-    if (tid < kBN && n0 + tid < a.K) {
-      float s = 0.0f, q = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWM; ++w) {
-        s += red[0][w][tid];
-        q += red[1][w][tid];
-      }
-      a.ws[(static_cast<long long>(blockIdx.x) * 2) * a.K + n0 + tid] = s;
-      a.ws[(static_cast<long long>(blockIdx.x) * 2 + 1) * a.K + n0 + tid] = q;
-    }
-  }
+template <bool kStats>
+cudaError_t launch(sm90::Geom g, const Out& o, cudaStream_t stream) {
+  constexpr int kSmem = sm90::smem_bytes<kWG, kBN, 0>();
+  static int per_sm = -1;
+  g.m_tiles = static_cast<int>((g.M + kBM - 1) / kBM);
+  g.n_tiles = (g.Cout + kBN - 1) / kBN;
+  g.units = g.m_tiles * g.n_tiles;
+  sm90::set_divisors(g);
+  int grid = 0;
+  cudaError_t err =
+      sm90::persistent_grid(conv3x3_kernel<kStats>, kThreads, kSmem, g.units, &per_sm, &grid);
+  if (err != cudaSuccess) return err;
+  conv3x3_kernel<kStats><<<grid, kThreads, kSmem, stream>>>(g, o);
+  return cudaGetLastError();
 }
 
 // Sum the G partials of each channel in a fixed order, in float64: kStrands
@@ -248,7 +172,7 @@ extern "C" {
 
 // x: (n, H, W, C) bf16 NHWC; w: (K, Kpad) bf16, row k = output channel k,
 // K-order (kh, kw, c), Kpad = 9C rounded up to 32, zero past 9C; y: (n, H,
-// W, K) bf16. With with_stats: ws, a (ceil(n*H*W / 128), 2, K) float32
+// W, K) bf16. With with_stats: ws, a (ceil(n*H*W / 64), 2, K) float32
 // workspace, and stats, (2, K) float32 = the sums of the accumulators and of
 // their squares; both unused otherwise. All on the device, contiguous,
 // 16-byte aligned. Returns a cudaError_t: cudaErrorInvalidValue for what
@@ -259,36 +183,41 @@ int yolo_bf16_conv3x3(const void* x, const void* w, void* y, void* ws, void* sta
   if (n < 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || K <= 0 || K % 8 || !x || !w || !y ||
       (with_stats && (!ws || !stats)))
     return cudaErrorInvalidValue;
-  ConvArgs a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = static_cast<const __nv_bfloat16*>(w);
-  a.y = static_cast<__nv_bfloat16*>(y);
-  a.ws = static_cast<float*>(ws);
-  a.N = n;
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.K = K;
-  a.Kdim = 9 * C;
-  a.Kpad = (9 * C + kBK - 1) / kBK * kBK;
-  a.M = static_cast<long long>(n) * H * W;
+  sm90::Geom g;
+  g.x = static_cast<const uint8_t*>(x);
+  g.w = static_cast<const uint8_t*>(w);
+  g.H = g.Ho = H;
+  g.W = g.Wo = W;
+  g.Cin = C;
+  g.Cout = K;
+  g.KH = g.KW = 3;
+  g.stride = 1;
+  g.pad_t = g.pad_l = 1;
+  g.K = 9 * C;
+  g.kpad_bytes = 2 * ((9 * C + 31) / 32 * 32);
+  g.M = static_cast<long long>(n) * H * W;
+  g.splits = 1;
+  g.k_stages = (g.kpad_bytes + sm90::kStageBytes - 1) / sm90::kStageBytes;
+  Out o;
+  o.y = static_cast<__nv_bfloat16*>(y);
+  o.ws = static_cast<float*>(ws);
+  o.M = g.M;
+  o.K = K;
   auto st = static_cast<cudaStream_t>(stream);
-  const long long G = (a.M + kBM - 1) / kBM;
-  if (G > 0x7fffffff) return cudaErrorInvalidValue;
+  const long long G = (g.M + kSlab - 1) / kSlab;
+  // 32-bit offsets in the mainloop: x, w and y stay under 2 GB.
+  if (2 * g.M * C > 0x7fffffffLL || 2LL * g.M * K > 0x7fffffffLL ||
+      static_cast<long long>(K) * g.kpad_bytes > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  o.G = static_cast<int>(G);
   if (G == 0) {
     if (with_stats) return cudaMemsetAsync(stats, 0, 2 * sizeof(float) * K, st);
     return cudaSuccess;
   }
-  const dim3 grid(static_cast<unsigned>(G), static_cast<unsigned>((K + kBN - 1) / kBN));
-  if (with_stats) {
-    conv3x3_kernel<true><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    conv3x3_kernel<false><<<grid, kThreads, 0, st>>>(a);
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = with_stats ? launch<true>(g, o, st) : launch<false>(g, o, st);
   if (err != cudaSuccess || !with_stats) return err;
-  stats_finalize<<<(K + 31) / 32, dim3(32, kStrands), 0, st>>>(a.ws, static_cast<float*>(stats),
-                                                               static_cast<int>(G), K);
+  stats_finalize<<<(K + 31) / 32, dim3(32, kStrands), 0, st>>>(o.ws, static_cast<float*>(stats),
+                                                               o.G, K);
   return cudaGetLastError();
 }
 

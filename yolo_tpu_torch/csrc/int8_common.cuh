@@ -1,6 +1,7 @@
-// Device helpers shared by the int8 serving kernels (int8_conv.cu,
-// int8_bottleneck.cu): 16-byte cp.async, the s8 tensor-core product and the
-// requant epilogue, rounded in the op order of
+// Device helpers shared by the int8 serving kernels: 16-byte cp.async and
+// the mma.sync s8 product (int8_bottleneck.cu, int8_wino.cu, int8_dot.cu;
+// int8_conv.cu's mainloop is sm90_conv_core.cuh's wgmma), and the requant
+// epilogue of all of them, rounded in the op order of
 // yolo_tpu/serving/engine.py::_requant so that the kernels equal their eager
 // twins bit for bit.
 #pragma once

@@ -5,8 +5,9 @@ entry ``pallas_conv`` from ``build``) becomes ``csrc/bf16_conv_stats.cu``
 (``yolo_bf16_conv3x3``): a 3x3 / stride 1 / SAME conv of NHWC bf16 with
 float32 accumulators and y rounded to bf16; with ``stats``, also each output
 channel's sum of the float32 accumulators and of their squares, over the
-whole batch, written as per-block partials and summed by a second pass (no
-atomics: two runs give identical sums).
+whole batch, written as partials of 64-row slabs of the output and summed by
+a second pass (no atomics: two runs give identical sums). Its mainloop is
+the wgmma core it shares with the int8 conv (``csrc/sm90_conv_core.cuh``).
 
 - :func:`conv3x3_bf16` is the wrapper: CUDA tensors only, it launches the
   kernel or raises;
@@ -42,7 +43,7 @@ import torch.nn.functional as F
 LAUNCHES = 0
 
 K_ALIGN = 32  # the kernel's K step: packed weights are zero-padded to it
-BM = 128  # output rows of the kernel's tiles: the stats workspace holds one partial per tile row
+BM = 64  # rows of one stats partial (a consumer warpgroup's share of the kernel's 128-row tile)
 BF16_FLOPS_S = 989e12  # H100 SXM data sheet, dense bf16
 EPS = 1e-5
 # experiments/conv_bn_fuse_bench.py:153-156: (name, H, C, K), the layer3 /
@@ -87,6 +88,12 @@ def conv3x3_bf16_reference(x: torch.Tensor, w9: torch.Tensor, stats: bool = Fals
 
 
 # ------------------------------------------------------------------ kernel
+def stats_workspace_shape(n: int, h: int, w: int, k: int) -> Tuple[int, int, int]:
+    """(G, 2, K) float32: one partial (sums, sums of squares) per BM-row slab of
+    the output, G = ceil(n*h*w / BM), which the kernel writes at the slab's index."""
+    return -(-n * h * w // BM), 2, k
+
+
 def _check(x, w9, wk) -> None:
     for name, t in (("x", x), ("w9", w9), ("packed weight", wk)):
         if t.device.type != "cuda":
@@ -126,7 +133,8 @@ def conv3x3_bf16(x: torch.Tensor, w9: torch.Tensor, stats: bool = False,
     s = ws = None
     if stats:
         s = torch.empty((2, k), dtype=torch.float32, device=x.device)
-        ws = torch.empty((-(-n * h * w // BM), 2, k), dtype=torch.float32, device=x.device)
+        ws = torch.empty(stats_workspace_shape(n, h, w, k), dtype=torch.float32,
+                         device=x.device)
     lib = kernels.load()
     with torch.cuda.device(x.device):
         code = lib.yolo_bf16_conv3x3(

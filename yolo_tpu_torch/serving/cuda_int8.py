@@ -12,6 +12,10 @@ runs every int8 conv here.
 Activations are NHWC int8; weights are the q-params' HWIO int8 ``wq``. The
 kernel reads them repacked once as (Cout, Kpad), K contiguous
 (:func:`pack_weight`; ``engine.to_device`` stores the result as ``wk``).
+Its mainloop is the wgmma core it shares with the bf16 conv
+(``csrc/sm90_conv_core.cuh``); :func:`plan` picks its output tile and its
+K splits by shape, and a split conv's exact int32 partials are summed by a
+second pass that runs the epilogue once (one count in :data:`LAUNCHES`).
 
 Epilogue modes, in the op order of yolo_tpu/serving/engine.py::_requant:
 
@@ -36,6 +40,8 @@ runs or the call raises.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -114,15 +120,49 @@ def conv_int8_reference(x, wq, m, t, stride: int = 1, pad: Pad = 0, mode: str = 
 
 
 # ------------------------------------------------------------------ kernel
-def pick_tile(m_rows: int, cout: int) -> int:
-    """The kernel's output tile: 0 = 128x128, 1 = 128x64, 2 = 64x64.
+#: The kernel's output tiles (rows, channels): 128-row tiles run two
+#: consumer warpgroups in a block, 64-row tiles one (and two blocks an SM).
+TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+STAGE_BYTES = 128  # K bytes of one stage of the kernel's shared-memory ring
+MIN_SPLIT_STAGES = 4  # a K split keeps at least this many stages
+_RESIDENT = {128: 1, 64: 2}  # blocks an SM holds, by tile rows
 
-    64x64 where 128-row tiles would leave the card's 132 SMs short of two
-    blocks each (layer4, the head and fc1 at small batch); 128x64 where
-    Cout is 64 (the stem, layer1's conv1/conv2)."""
-    if -(-m_rows // 128) * -(-cout // 128) < 2 * _SMS:
-        return 2
-    return 1 if cout <= 64 else 0
+
+def k_stages(k: int) -> int:
+    """The kernel's K stages for K = KH*KW*Cin (packed to K_ALIGN, 128 bytes a stage)."""
+    return -(-(-(-k // K_ALIGN) * K_ALIGN) // STAGE_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m_rows: int, cout: int, k: int) -> Tuple[int, int]:
+    """(tile, splits) of one conv: an index into :data:`TILES` and the
+    number of K splits, chosen by shape alone.
+
+    K of one or two stages with Cout <= 512 (the stems, layer1's and
+    layer2's 1x1 convs over 64-256 channels): 64x64 tiles, two blocks and
+    so two producer warpgroups an SM, which set the pace there (their tile
+    sweep at batch 16 in ``chip_smoke.py`` phase 11). Otherwise channels:
+    64-wide tiles where Cout <= 64, else 128; rows: 128 where 128-row tiles
+    give every SM one, else 64 (two blocks an SM). Where the tiles still
+    leave SMs idle (fc1, layer4 and the head at small batch), K is split
+    into the largest divisor of its stages that fits the idle slots and
+    keeps each split at least MIN_SPLIT_STAGES stages; the splits' exact
+    int32 partials are summed by a second pass."""
+    stages = k_stages(k)
+    if stages <= 2 and cout <= 512:
+        return TILES.index((64, 64)), 1
+    bn = 64 if cout <= 64 else 128
+    bm = 128 if -(-m_rows // 128) * -(-cout // bn) >= _SMS else 64
+    units = -(-m_rows // bm) * -(-cout // bn)
+    want = _SMS * _RESIDENT[bm] // max(units, 1)
+    splits = max(d for d in range(1, max(want, 1) + 1)
+                 if d == 1 or (stages % d == 0 and stages // d >= MIN_SPLIT_STAGES))
+    return TILES.index((bm, bn)), splits
+
+
+def workspace_shape(m_rows: int, cout: int, splits: int) -> Optional[Tuple[int, int, int]]:
+    """The int32 split-K workspace (splits, M, Cout) the wrapper allocates, or None."""
+    return (splits, m_rows, cout) if splits > 1 else None
 
 
 def _check(x, wk, m, t, mode, res, r, kh, kw) -> None:
@@ -149,8 +189,25 @@ def _check(x, wk, m, t, mode, res, r, kh, kw) -> None:
         tensors += [res, r]
     if any(v.device != dev for v in tensors):
         raise ValueError("conv_int8: every operand must be on x's device")
-    if x.data_ptr() % 16 or wk.data_ptr() % 16:
-        raise ValueError("conv_int8: x and the packed weight must be 16-byte aligned")
+    if x.data_ptr() % (16 if x.shape[3] % 16 == 0 else 4) or wk.data_ptr() % 16 or (
+            mode == "residual" and res.data_ptr() % 16):
+        raise ValueError("conv_int8: x (16-byte where Cin % 16 == 0, else 4), the packed "
+                         "weight and res (16-byte) must be aligned")
+
+
+def launch_buffers(x_shape, cout: int, kh: int, kw: int, stride: int, pad: Pad, mode: str,
+                   device) -> Tuple[torch.Tensor, Optional[torch.Tensor], int, int]:
+    """(out, split-K workspace or None, tile, splits) of one kernel call:
+    the output and the workspace allocated with ``torch.empty`` as
+    :func:`plan` and :func:`workspace_shape` say."""
+    n, h, w, cin = x_shape
+    ho, wo = out_size(h, w, kh, kw, stride, pad)
+    dtype = {"float": torch.float32, "acc": torch.int32}.get(mode, torch.int8)
+    out = torch.empty((n, ho, wo, cout), dtype=dtype, device=device)
+    tile, splits = plan(n * ho * wo, cout, kh * kw * cin)
+    ws_shape = workspace_shape(n * ho * wo, cout, splits)
+    ws = None if ws_shape is None else torch.empty(ws_shape, dtype=torch.int32, device=device)
+    return out, ws, tile, splits
 
 
 def _launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r) -> torch.Tensor:
@@ -160,20 +217,22 @@ def _launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r) -> torch.Tensor:
     n, h, w, cin = x.shape
     cout, kpad = wk.shape
     pt, _, pl, _ = _pads(pad)
-    ho, wo = out_size(h, w, kh, kw, stride, pad)
-    dtype = {"float": torch.float32, "acc": torch.int32}.get(mode, torch.int8)
-    out = torch.empty((n, ho, wo, cout), dtype=dtype, device=x.device)
+    out, ws, tile, splits = launch_buffers(x.shape, cout, kh, kw, stride, pad, mode, x.device)
+    _, ho, wo, _ = out.shape
     if mode == "residual" and tuple(res.shape) != tuple(out.shape):
         raise ValueError(f"conv_int8: res must be {tuple(out.shape)}, got {tuple(res.shape)}")
     lib = kernels.load()
-    with torch.cuda.device(x.device):
+    # Entering the device's context costs host time on every call; only a
+    # tensor on another than the current device needs it.
+    on_current = x.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_current else torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.yolo_int8_conv(
             x.data_ptr(), wk.data_ptr(), m.data_ptr(), t.data_ptr(),
             res.data_ptr() if res is not None else None,
             r.data_ptr() if r is not None else None, out.data_ptr(),
             n, h, w, cin, ho, wo, cout, kh, kw, stride, pt, pl, kpad, MODES[mode],
-            pick_tile(n * ho * wo, cout), stream,
+            tile, splits, ws.data_ptr() if ws is not None else None, stream,
         )
     kernels.check(code, "yolo_int8_conv launch")
     LAUNCHES += 1

@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
         lib.yolo_bn_bwd_reduce.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
         lib.yolo_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
         lib.yolo_quant_s2d.argtypes = [vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp]
-        lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 15), vp]
+        lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 16), vp, vp]
         ptrs = ctypes.POINTER(vp)
         lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), vp]
         lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
