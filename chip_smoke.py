@@ -16,9 +16,10 @@ Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
-2. build: nvcc compiles yolo_tpu_torch/csrc/*.cu for sm_90a; the int8 and
-   bf16 conv kernels (the shared wgmma core, csrc/sm90_conv_core.cuh) must
-   show IGMMA / HGMMA and no IMMA / HMMA in cuobjdump's SASS;
+2. build: nvcc compiles yolo_tpu_torch/csrc/*.cu for sm_90a; the kernels on
+   the shared wgmma core (csrc/sm90_conv_core.cuh: the int8 conv, which
+   also runs the int8 dot, the bf16 conv and the Winograd conv's tap GEMM)
+   must show IGMMA / HGMMA and no IMMA / HMMA in cuobjdump's SASS;
 3. kernel vs plain: the NMS kernel's keep masks against its plain torch twin
    on CPU copies, over seeded batches (K = 98, 162, 392; eps 1e-6 and 0;
    t 0.4 and 0.5; tie storms; all-invalid rows), timed with CUDA events;
@@ -82,12 +83,16 @@ Phases:
    python -m yolo_tpu_torch.bench_int8 --variants int8,chain;
 16. timing (information only): default vs chained int8 img/s at batch 1,
    16, 64 and 256, in turns, with the idle share;
-17. Winograd kernel vs plain twin: at each distinct stride-1 3x3 conv of
-   the full-width engine (seeded q-params), batch 2 and 16, leaky or ReLU
-   as the engine uses them, bit for bit; kernel, twin, direct int8 conv and
-   16 x torch._int_mm times beside the bound; the ablation modes (taps,
-   dots, dots-raw) against their twins at head.conv1 geometry; then
-   python -m yolo_tpu_torch.experiments.wino_ablate at its defaults;
+17. Winograd conv (csrc/int8_wino.cu: a tap pass, then a tap GEMM on the
+   wgmma core) vs plain twin: at each distinct stride-1 3x3 conv of the
+   full-width engine (seeded q-params), batch 2 and 16, leaky or ReLU as
+   the engine uses them, bit for bit; at batch 16 and 256 the tap pass,
+   the tap GEMM and the conv (device times from CUDA graphs, each beside
+   its bound), the wrapper and the direct int8 conv; at batch 16 the twin
+   and 16 x torch._int_mm; every tile plan() can pick at a ragged Mt;
+   the ablation modes (taps, dots, dots-raw) against their twins at
+   head.conv1 geometry; then python -m
+   yolo_tpu_torch.experiments.wino_ablate at its defaults;
 18. Winograd slice: YOLOInference(optimize="int8", wino=<all 16 convs>) on
    the phase-12 model: one served batch launches the stem kernel once, the
    int8 conv kernel 42 times and the Winograd kernel 16 times (counts
@@ -103,10 +108,12 @@ Phases:
    against step 8 of the port's Adam + clip_grad_norm_, rtol 1e-6); then
    python -m yolo_tpu_torch.experiments.opt_update_microbench (kernel, twin,
    torch.optim.Adam fused and foreach, in ms and GB/s);
-21. int8 dot + requant (csrc/int8_dot.cu) vs its twin, bit for bit, in the
-   five (K, N) cases at M = 4096 and M = 2**20 + 17 (a ragged tail; K = 300
-   rows only 4-byte aligned); then python -m
-   yolo_tpu_torch.experiments.mosaic_int8_dot (kernel and torch._int_mm);
+21. int8 dot + requant (the int8 conv kernel, csrc/int8_conv.cu, on an (M,
+   1, 1, K) view) vs its twin, bit for bit, in the five (K, N) cases at M =
+   4096 and M = 2**20 + 17 (a ragged tail; K = 300 rows only 4-byte
+   aligned); then python -m yolo_tpu_torch.experiments.mosaic_int8_dot
+   (kernel and torch._int_mm); then each case's device time (CUDA graphs)
+   beside its bound and _int_mm's, with every tile forced;
 22. bf16 3x3 conv + BN statistics (csrc/bf16_conv_stats.cu) vs its twin at
    the layer3 and layer4 identity-conv2 geometries, batch 2 and 128, and
    at 13x13 (batch 1 and 2): y
@@ -126,8 +133,12 @@ launch count zeroed just before and read just after.
 ``python3 chip_smoke.py --int8-conv-times DIR`` instead times the int8 conv
 of the checkout at DIR (device time from CUDA graphs, and the wrapper's) at
 every distinct engine geometry at batch 16, with the sums over all 58
-convs: the way to hold two versions of the kernel against each other on
-one card.
+convs, the int8 dot in its five cases at M = 2^20 beside torch._int_mm,
+and the Winograd conv at its six geometries at batch 16 and 256 beside the
+direct int8 conv (a Winograd wrapper that a CUDA graph cannot capture is
+timed between CUDA events instead and printed as "wrapper", host time
+included): the way to hold two versions of the kernels against each other
+on one card.
 
 Any failure raises and exits nonzero. The last lines are the kernels' JSON
 record, the card line, and {"ok": true, "device": {...}}. Needs one CUDA
@@ -312,15 +323,22 @@ def phase_build() -> None:
             log(f"[2]   {kernel[:90]}: {line.split(':', 1)[1].strip()}; {spills}")
         elif "error" in line:
             log(f"[2]   {line.strip()}")
-    # The two conv kernels run on wgmma: IGMMA / HGMMA in their SASS, and no
-    # mma.sync (IMMA / HMMA) anywhere in them.
+    # The kernels on the shared core run on wgmma (the int8 conv, which also
+    # runs the int8 dot; the bf16 conv; the Winograd conv's tap GEMM): IGMMA /
+    # HGMMA in their SASS, and no mma.sync (IMMA / HMMA) anywhere in them.
+    on_core = ("int8_conv_kernel<", "conv3x3_kernel<", "wino_gemm_kernel<")
+    checked = 0
     for fn, ops in sass_counts(path).items():
-        if "int8_conv_kernel<" in fn or "conv3x3_kernel<" in fn:
-            want, banned = ("IGMMA", "IMMA") if "int8" in fn else ("HGMMA", "HMMA")
+        if any(name in fn for name in on_core):
+            checked += 1
+            want, banned = ("HGMMA", "HMMA") if "conv3x3_kernel<" in fn else ("IGMMA", "IMMA")
             log(f"[2]   SASS {fn[:70]}: " + ", ".join(f"{k} {v}" for k, v in sorted(ops.items())))
             if not ops.get(want) or ops.get(banned):
                 raise AssertionError(f"{fn}: expected {want} and no {banned} in its SASS, got "
                                      f"{ops}")
+    # 12 int8 conv instantiations (4 tiles x 3 gathers), 2 bf16, 4 tap GEMM.
+    if checked != 18:
+        raise AssertionError(f"found {checked} wgmma kernels in the SASS, expected 18")
 
 
 def sass_counts(path: Path) -> dict:
@@ -1717,11 +1735,84 @@ def _wino_bound(n: int, h: int, c: int, k: int, mode: str = "full"):
     return max(bound(n_bytes, dots, INT8_OPS_S), (taps / FP32_FLOPS_S * 1e3, "operations"))
 
 
+def _wino_part_bounds(n: int, h: int, c: int, k: int):
+    """(tap pass, tap GEMM) bounds in ms, each as a function of its own: the
+    pass reads x and writes the (16, Mt, C) taps; the GEMM reads the taps,
+    U, mw and the bias, runs the 16 tap dots and writes y."""
+    from yolo_tpu_torch.serving import cuda_wino
+
+    dots, taps, n_bytes = cuda_wino.work(n, h, h, c, k)
+    scratch = int(np.prod(cuda_wino.scratch_shape(n, h, h, c)))
+    x_bytes, y_bytes = n * h * h * c, n * h * h * k
+    pass_ms = max(bound(x_bytes + scratch, 0, INT8_OPS_S)[0], taps / FP32_FLOPS_S * 1e3)
+    gemm_ms = bound(n_bytes - x_bytes + scratch, dots, INT8_OPS_S)[0]
+    return pass_ms, gemm_ms
+
+
+def wino_device_ms(x, qc: dict, leaky: bool, events_if_uncapturable: bool = False) -> dict:
+    """Device ms (CUDA graphs) of one Winograd conv through the package that
+    cuda_wino was imported from: "total", and where that package splits the
+    conv into a tap pass and a tap GEMM (this one), "taps" and "gemm". A
+    wrapper that a CUDA graph cannot capture raises, unless
+    ``events_if_uncapturable``: then "wrapper" holds the call's time between
+    CUDA events, host time included, in place of "total"."""
+    from yolo_tpu_torch.serving import cuda_wino
+
+    call = lambda: cuda_wino.conv3x3_wino(x, qc, leaky)  # noqa: E731
+    try:
+        out = {"total": graph_ms(call, iters=10 if x.shape[0] > SLICE_BATCH else 20)}
+    except RuntimeError as e:
+        if not events_if_uncapturable:
+            raise
+        log(f"CUDA graph capture failed ({str(e).splitlines()[0][:80]}); wrapper time from "
+            f"CUDA events instead, host time included")
+        out = {"wrapper": cuda_ms(call, iters=10)}
+    if hasattr(cuda_wino, "tap_pass"):
+        qw = qc["wino"]
+        n, h, w, _ = x.shape
+        vq = cuda_wino.tap_pass(x, qw["dinv"])
+        out["taps"] = graph_ms(lambda: cuda_wino.tap_pass(x, qw["dinv"]))
+        out["gemm"] = graph_ms(lambda: cuda_wino.tap_gemm(vq, qw, qw["uk"], (n, h, w), leaky))
+        del vq
+    return out
+
+
+def _wino_gemm_tile_ms(x, qw: dict, leaky: bool) -> list:
+    """Device ms of the tap GEMM with each of cuda_wino.TILES forced."""
+    from yolo_tpu_torch.serving import cuda_wino
+
+    n, h, w, _ = x.shape
+    vq, plan, out = cuda_wino.tap_pass(x, qw["dinv"]), cuda_wino.plan, []
+    try:
+        for tile in range(len(cuda_wino.TILES)):
+            cuda_wino.plan = lambda *a, tile=tile: tile
+            out.append(graph_ms(lambda: cuda_wino.tap_gemm(vq, qw, qw["uk"], (n, h, w), leaky)))
+    finally:
+        cuda_wino.plan = plan
+    return out
+
+
+def _direct_conv_ms(x, k: int, leaky: bool, g) -> float:
+    """Device ms of the direct int8 conv kernel on the same 3x3 conv."""
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_int8
+
+    c = x.shape[3]
+    wq = torch.randint(-127, 128, (3, 3, c, k), generator=g, device="cuda", dtype=torch.int8)
+    wk = cuda_int8.pack_weight(wq)
+    m = (torch.rand(k, generator=g, device="cuda") + 0.5) / float(40 * np.sqrt(9 * c))
+    t = torch.rand(k, generator=g, device="cuda") * 6 - 3
+    mode = "leaky" if leaky else "relu"
+    return graph_ms(lambda: cuda_int8.conv_int8(x, wq, m, t, 1, 1, mode, wk=wk),
+                    iters=10 if x.shape[0] > SLICE_BATCH else 20)
+
+
 def phase_wino_kernels(card: str) -> dict:
     import torch
 
     from yolo_tpu_torch.experiments import wino_ablate
-    from yolo_tpu_torch.serving import cuda_int8, cuda_wino
+    from yolo_tpu_torch.serving import cuda_wino
 
     g = torch.Generator(device="cuda").manual_seed(61)
     rand_i8 = lambda shape: torch.randint(  # noqa: E731
@@ -1737,49 +1828,85 @@ def phase_wino_kernels(card: str) -> dict:
             if got.shape != ref.shape or not torch.equal(got, ref):
                 raise AssertionError(f"wino kernel at {name}, batch {batch}, differs from its "
                                      f"twin in {int((got != ref).sum())} values")
-        # Times at the slice's batch: kernel, twin, the direct int8 conv kernel
-        # on the same conv, and 16 torch._int_mm at the tap-dot shape.
-        k_ms = cuda_ms(lambda: cuda_wino.conv3x3_wino(x, qc, leaky), iters=10)
-        p_ms = cuda_ms(lambda: cuda_wino.conv3x3_wino_reference(x, qc, leaky), iters=2, warmup=1)
-        wq = rand_i8((3, 3, c, k))
-        wk = cuda_int8.pack_weight(wq)
-        m = (torch.rand(k, generator=g, device="cuda") + 0.5) / float(40 * np.sqrt(9 * c))
-        t = torch.rand(k, generator=g, device="cuda") * 6 - 3
-        mode = "leaky" if leaky else "relu"
-        d_ms = cuda_ms(lambda: cuda_int8.conv_int8(x, wq, m, t, 1, 1, mode, wk=wk), iters=10)
-        th, tw = cuda_wino.tiles(h, h)
-        a = rand_i8((SLICE_BATCH * th * tw, c))
-        b = qc["wino"]["uk"][0].t()  # (C, K), column-major
-        lib_ms = cuda_ms(lambda: [torch._int_mm(a, b) for _ in range(16)], iters=5)
-        b_ms, b_by = _wino_bound(SLICE_BATCH, h, c, k)
-        dots, _, _ = cuda_wino.work(SLICE_BATCH, h, h, c, k)
-        out["conv"][name] = (k_ms, p_ms, b_ms, b_by, lib_ms, d_ms)
-        log(f"[17] {card}: wino {name} {h}x{h}, {c}->{k}, {'leaky' if leaky else 'relu'}: == twin "
-            f"bit for bit at batch 2 and {SLICE_BATCH}; batch {SLICE_BATCH}: kernel {k_ms:.4f} ms "
-            f"({dots / k_ms / 1e9:.1f} int8 TOPS of tap dots; bound {b_ms:.4f} ms by {b_by}, "
-            f"{100 * b_ms / k_ms:.1f}%), direct int8 conv kernel {d_ms:.4f} ms (wino / direct "
-            f"{k_ms / d_ms:.3f}), twin {p_ms:.3f} ms, 16 x torch._int_mm ({a.shape[0]}, {c}) x "
-            f"({c}, {k}) {lib_ms:.4f} ms (accumulators only)")
-        del x, got, ref, qc, wq, wk, a
+        # Times at the slice's batch and at 256: the tap pass, the tap GEMM and
+        # the conv (device, CUDA graphs), the wrapper's time, the direct int8
+        # conv kernel on the same conv; at batch 16 also the twin and 16
+        # torch._int_mm at the tap-dot shape (the accumulators only).
+        for batch in (SLICE_BATCH, 256):
+            if batch != SLICE_BATCH:
+                x = rand_i8((batch, h, h, c))
+            dev = wino_device_ms(x, qc, leaky)
+            k_ms = dev["total"]
+            w_ms = cuda_ms(lambda: cuda_wino.conv3x3_wino(x, qc, leaky), iters=10)
+            d_ms = _direct_conv_ms(x, k, leaky, g)
+            b_ms, b_by = _wino_bound(batch, h, c, k)
+            tb_ms, gb_ms = _wino_part_bounds(batch, h, c, k)
+            dots, _, _ = cuda_wino.work(batch, h, h, c, k)
+            tile = cuda_wino.plan(batch, h, h, c, k)
+            line = ""
+            p_ms = lib_ms = None
+            if batch == SLICE_BATCH:
+                line = ", tap GEMM by tile " + ", ".join(  # the numbers behind plan()
+                    f"{bm}x{bn} {ms:.4f}" for (bm, bn), ms in zip(
+                        cuda_wino.TILES, _wino_gemm_tile_ms(x, qc["wino"], leaky)))
+                p_ms = cuda_ms(lambda: cuda_wino.conv3x3_wino_reference(x, qc, leaky), iters=2,
+                               warmup=1)
+                th, tw = cuda_wino.tiles(h, h)
+                a = rand_i8((batch * th * tw, c))
+                b = qc["wino"]["uk"][0].t()  # (C, K), column-major
+                lib_ms = graph_ms(lambda: [torch._int_mm(a, b) for _ in range(16)], iters=2)
+                line += (f"; twin {p_ms:.3f} ms, 16 x torch._int_mm ({a.shape[0]}, {c}) x "
+                         f"({c}, {k}) {lib_ms:.4f} ms (accumulators only)")
+                out["conv"][name] = (k_ms, p_ms, b_ms, b_by, lib_ms, d_ms, dev, w_ms)
+                del a
+            out.setdefault("batch", {})[(name, batch)] = (dev, w_ms, b_ms, d_ms)
+            log(f"[17] {card}: wino {name} {h}x{h}, {c}->{k}, {'leaky' if leaky else 'relu'}, "
+                f"batch {batch}, tile {cuda_wino.TILES[tile]}: "
+                f"tap pass {dev['taps']:.4f} ms (bound {tb_ms:.4f}, {100 * tb_ms / dev['taps']:.1f}%)"
+                f" + tap GEMM {dev['gemm']:.4f} ms (bound {gb_ms:.4f}, "
+                f"{100 * gb_ms / dev['gemm']:.1f}%; {dots / dev['gemm'] / 1e9:.1f} int8 TOPS), "
+                f"conv {k_ms:.4f} ms device (bound {b_ms:.4f} ms by {b_by}, "
+                f"{100 * b_ms / k_ms:.1f}%), wrapper {w_ms:.4f} ms; direct int8 conv "
+                f"{d_ms:.4f} ms (wino / direct {k_ms / d_ms:.3f}){line}")
+        log(f"[17] wino {name}: == twin bit for bit at batch 2 and {SLICE_BATCH}")
+        del x, got, ref, qc
+        torch.cuda.empty_cache()
+
+    # Every tile plan() can pick, forced, at a ragged Mt.
+    plan = cuda_wino.plan
+    qc = {"wino": _rand_qwino(g, 128, 192)}
+    x = rand_i8((3, 13, 11, 128))
+    ref = cuda_wino.conv3x3_wino_reference(x, qc, False)
+    try:
+        for tile in range(len(cuda_wino.TILES)):
+            cuda_wino.plan = lambda *a, tile=tile: tile
+            if not torch.equal(cuda_wino.conv3x3_wino(x, qc, False), ref):
+                raise AssertionError(f"wino kernel with tile {tile} differs from its twin")
+    finally:
+        cuda_wino.plan = plan
+    log(f"[17] wino kernel at (3, 13, 11) 128->192 (Mt = 126): every tile "
+        f"{cuda_wino.TILES} == twin bit for bit")
 
     # The ablation modes at head-conv1 geometry, against their twins.
     _, h, c, k, _ = WINO_CONVS[4]
     qw = _rand_qwino(g, c, k)
     x = rand_i8((SLICE_BATCH, h, h, c))
+    zeros = cuda_wino.zero_taps(x)  # the dots modes' taps, zero-filled outside the timing
     for mode in cuda_wino.MODES:
-        got, ref = cuda_wino.wino_ablate(x, qw, mode), cuda_wino.wino_ablate_reference(x, qw, mode)
+        got = cuda_wino.wino_ablate(x, qw, mode, zeros)
+        ref = cuda_wino.wino_ablate_reference(x, qw, mode)
         out["mode_err"] = max(out["mode_err"], float((got.int() - ref.int()).abs().max()))
         if not torch.equal(got, ref):
             raise AssertionError(f"wino mode {mode} differs from its twin in "
                                  f"{int((got != ref).sum())} values")
-        k_ms = cuda_ms(lambda: cuda_wino.wino_ablate(x, qw, mode), iters=10)
+        k_ms = cuda_ms(lambda: cuda_wino.wino_ablate(x, qw, mode, zeros), iters=10)
         p_ms = cuda_ms(lambda: cuda_wino.wino_ablate_reference(x, qw, mode), iters=2, warmup=1)
         b_ms, b_by = _wino_bound(SLICE_BATCH, h, c, k, mode)
         out["modes"][mode] = (k_ms, p_ms, b_ms, b_by)
         log(f"[17] {card}: wino mode {mode}, head.conv1 geometry, batch {SLICE_BATCH}: == twin "
             f"bit for bit; kernel {k_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}), twin "
             f"{p_ms:.3f} ms")
-    del x, qw
+    del x, qw, zeros
 
     # The ablation's own entry point at its defaults (batch 256, 14x14,
     # 1024 -> 1024): the path of the ablation modes, counted.
@@ -1790,9 +1917,9 @@ def phase_wino_kernels(card: str) -> dict:
         raise AssertionError(f"wino_ablate launched {out['ablation_launches']}")
     ab = out["ablation"]
     log(f"[17] python -m yolo_tpu_torch.experiments.wino_ablate (batch 256): launches "
-        f"{out['ablation_launches']}; full {ab['full']:.4f} ms, taps + dots "
-        f"{ab['taps'] + ab['dots']:.4f} ms (full / (taps + dots) "
-        f"{ab['full'] / (ab['taps'] + ab['dots']):.3f}), dots-raw {ab['dots-raw']:.4f} ms")
+        f"{out['ablation_launches']}; full {ab['full']:.4f} ms = tap pass {ab['full'] - ab['dots']:.4f}"
+        f" + dots {ab['dots']:.4f} ms; taps alone {ab['taps']:.4f} ms; dots-raw "
+        f"{ab['dots-raw']:.4f} ms (the dequant and inverse: {ab['dots'] - ab['dots-raw']:.4f} ms)")
     torch.cuda.empty_cache()
     return out
 
@@ -1959,7 +2086,8 @@ def phase_wino_timing(q, thr: float, card: str) -> None:
                 log(f"[19]   wino(all 16), batch {batch}: device busy {profiled(busy)}")
             else:
                 share = {k: sum(v for n, v in per_kernel.items() if body in n) for k, body in
-                         (("wino", "int8_wino_kernel"), ("int8 conv", "int8_conv_kernel"))}
+                         (("wino tap pass", "wino_taps_kernel"), ("wino tap GEMM", "wino_gemm_kernel"),
+                          ("int8 conv", "int8_conv_kernel"))}
                 ms = min(v[0] for v in rates["wino(all 16)"])
                 log(f"[19]   wino(all 16), batch {batch}: device busy {busy:.3f} ms per batch "
                     f"(idle {100 * max(0.0, 1 - busy / ms):.1f}% of the faster CUDA-event time; "
@@ -2017,41 +2145,90 @@ def phase_adam(card: str) -> dict:
 
 
 # ---------------------------------------------------------------- phase 21
+def _dot_operands(g, M: int, K: int, N: int):
+    import torch
+
+    a = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    m = (torch.rand(N, generator=g, device="cuda") + 0.5) * (2e-2 / K**0.5)
+    return a, w, m
+
+
+def dot_device_ms(g, M: int) -> dict:
+    """{case: (kernel ms, torch._int_mm ms)}, device times (CUDA graphs), of
+    the int8 dot of the package that mosaic_int8_dot was imported from, in
+    the harness's five cases at M rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_tpu_torch.experiments import mosaic_int8_dot as md
+
+    out = {}
+    for name, K, N in md.CASES:
+        a, w, m = _dot_operands(g, M, K, N)
+        wk = md.pack_weight(w)
+        k_ms = graph_ms(lambda: md.int8_dot(a, w, m, wk), iters=5)
+        kp = -(-K // 8) * 8  # _int_mm takes K % 8 == 0: K = 300 zero-padded to 304
+        a_mm = F.pad(a, (0, kp - K)) if kp != K else a
+        w_mm = F.pad(w, (0, 0, 0, kp - K)).t().contiguous().t()
+        out[name] = (k_ms, graph_ms(lambda: torch._int_mm(a_mm, w_mm), iters=5))
+        del a, w, m, wk, a_mm, w_mm
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_int8_dot(card: str) -> dict:
     import torch
 
     from yolo_tpu_torch.experiments import mosaic_int8_dot as md
+    from yolo_tpu_torch.serving import cuda_int8
 
     out = {"err": 0.0}
     g = torch.Generator(device="cuda").manual_seed(72)
-
-    def operands(M, K, N):
-        a = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
-        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
-        m = (torch.rand(N, generator=g, device="cuda") + 0.5) * (2e-2 / K**0.5)
-        return a, w, m
-
     for M in (4096, 2**20 + 17):
         for name, K, N in md.CASES:
-            a, w, m = operands(M, K, N)
+            a, w, m = _dot_operands(g, M, K, N)
             got, ref = md.int8_dot(a, w, m), md.int8_dot_reference(a, w, m)
             out["err"] = max(out["err"], float((got.int() - ref.int()).abs().max()))
             if not torch.equal(got, ref):
                 raise AssertionError(f"int8 dot {name} at M = {M} differs from its twin in "
                                      f"{int((got != ref).sum())} values")
             del a, w, m, got, ref
-    log(f"[21] {card}: int8 dot == twin bit for bit in all {len(md.CASES)} cases at M = 4096 "
-        f"and {2**20 + 17}")
+    log(f"[21] {card}: int8 dot (the int8 conv kernel on an (M, 1, 1, K) view) == twin bit "
+        f"for bit in all {len(md.CASES)} cases at M = 4096 and {2**20 + 17}")
     res, out["launches"] = _harness(md, 21)
-    out["ms"], out["library_ms"] = res["l2-im2col"]
-    a, w, m = operands(md.M_DEFAULT, 1152, 128)
+    # Device times of the five cases beside their bounds, with the tile
+    # plan() picks and every tile forced (the numbers behind the plan).
+    dev = dot_device_ms(g, md.M_DEFAULT)
+    plan = cuda_int8.plan
+    for name, K, N in md.CASES:
+        ops, n_bytes = md.work(md.M_DEFAULT, K, N)
+        b_ms, b_by = bound(n_bytes, ops, INT8_OPS_S)
+        k_ms, lib_ms = dev[name]
+        tile, _ = plan(md.M_DEFAULT, N, K)
+        a, w, m = _dot_operands(g, md.M_DEFAULT, K, N)
+        wk = md.pack_weight(w)
+        sweep = []
+        try:
+            for ti, shape in enumerate(cuda_int8.TILES):
+                cuda_int8.plan = lambda m_rows, co, kk, ti=ti: (ti, 1)
+                sweep.append(f"{shape[0]}x{shape[1]} {graph_ms(lambda: md.int8_dot(a, w, m, wk), iters=5):.4f}")
+        finally:
+            cuda_int8.plan = plan
+        del a, w, m, wk
+        out.setdefault("cases", {})[name] = (k_ms, lib_ms, b_ms, b_by)
+        log(f"[21] {card}: int8 dot {name} (M = {md.M_DEFAULT}, K = {K}, N = {N}), tile "
+            f"{cuda_int8.TILES[tile]}: {k_ms:.4f} ms device ({ops / k_ms / 1e9:.1f} TOPS; bound "
+            f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / k_ms:.1f}%), harness {res[name][0]:.4f} ms; "
+            f"torch._int_mm {lib_ms:.4f} ms device, harness {res[name][1]:.4f} ms (accumulator "
+            f"only; kernel / _int_mm {k_ms / lib_ms:.3f}); tiles " + ", ".join(sweep))
+    torch.cuda.empty_cache()
+    out["ms"], out["library_ms"] = dev["l2-im2col"]
+    a, w, m = _dot_operands(g, md.M_DEFAULT, 1152, 128)
     out["plain_ms"] = cuda_ms(lambda: md.int8_dot_reference(a, w, m), iters=2, warmup=1)
-    ops, n_bytes = md.work(md.M_DEFAULT, 1152, 128)
-    out["bound"] = bound(n_bytes, ops, INT8_OPS_S)
-    log(f"[21] {card}: l2-im2col (M = {md.M_DEFAULT}, K = 1152, N = 128): kernel "
-        f"{out['ms']:.4f} ms (bound {out['bound'][0]:.4f} ms by {out['bound'][1]}, "
-        f"{100 * out['bound'][0] / out['ms']:.1f}%), twin {out['plain_ms']:.3f} ms, "
-        f"torch._int_mm {out['library_ms']:.4f} ms; {out['launches']} launches")
+    out["bound"] = out["cases"]["l2-im2col"][2:]
+    log(f"[21] {card}: l2-im2col twin {out['plain_ms']:.3f} ms; {out['launches']} launches in "
+        f"the harness's run")
     del a, w, m
     torch.cuda.empty_cache()
     return out
@@ -2147,16 +2324,25 @@ def phase_bf16_bottleneck(card: str) -> dict:
 
 def int8_conv_times(root: Path) -> None:
     """Device and wrapper ms of the int8 conv at every distinct geometry of
-    the engine at batch 16, and their sums over all 58 convs, through the
-    yolo_tpu_torch package of the checkout at ``root`` (an earlier commit
-    unpacked beside this one, say), so that two versions of the kernel are
-    timed the same way on one card."""
+    the engine at batch 16, and their sums over all 58 convs; device ms of
+    the int8 dot in the harness's five cases at M = 2^20 with torch._int_mm's;
+    device ms of the Winograd conv (and of its tap pass and tap GEMM, where
+    the package splits it) at the six stride-1 3x3 geometries at batch 16 and
+    256 with the direct int8 conv's. All through the yolo_tpu_torch package
+    of the checkout at ``root`` (an earlier commit unpacked beside this one,
+    say), so that two versions of the kernels are timed the same way on one
+    card."""
     sys.path.insert(0, str(root.resolve()))
     card = phase_environment()
-    from yolo_tpu_torch.serving import cuda_int8
+    import torch
 
-    if not Path(cuda_int8.__file__).resolve().is_relative_to(root.resolve()):
-        raise SystemExit(f"chip_smoke: imported {cuda_int8.__file__}, not {root}'s package")
+    from yolo_tpu_torch.experiments import mosaic_int8_dot as md
+    from yolo_tpu_torch.serving import cuda_int8, cuda_wino
+
+    for module in (cuda_int8, cuda_wino, md):
+        if not Path(module.__file__).resolve().is_relative_to(root.resolve()):
+            raise SystemExit(f"chip_smoke: imported {module.__file__}, not {root}'s package")
+    tag = f"[times {root.resolve().name}] {card}"
     times = {}
     for ci, conv in enumerate(_distinct(engine_convs(SLICE_BATCH))):
         x, wq, m, t, res, rr = _conv_operands(conv, 200 + ci)
@@ -2164,13 +2350,30 @@ def int8_conv_times(root: Path) -> None:
         dev_ms = graph_ms(_conv_call(conv, ops_))
         wrap_ms = cuda_ms(_conv_call(conv, ops_), iters=10)
         times[_geometry(conv)] = (dev_ms, wrap_ms)
-        log(f"[times {root.name}] {card}: int8 conv {conv[0]} batch {SLICE_BATCH}: "
+        log(f"{tag}: int8 conv {conv[0]} batch {SLICE_BATCH}: "
             f"{dev_ms:.4f} ms device, wrapper {wrap_ms:.4f} ms")
         del ops_, x, wq, res
     all58 = engine_convs(SLICE_BATCH)
-    log(f"[times {root.name}] {card}: int8 conv, all {len(all58)} convs at batch "
+    log(f"{tag}: int8 conv, all {len(all58)} convs at batch "
         f"{SLICE_BATCH}: {sum(times[_geometry(c)][0] for c in all58):.4f} ms device, "
         f"{sum(times[_geometry(c)][1] for c in all58):.4f} ms wrapper")
+    g = torch.Generator(device="cuda").manual_seed(81)
+    for name, (k_ms, lib_ms) in dot_device_ms(g, md.M_DEFAULT).items():
+        log(f"{tag}: int8 dot {name} M = {md.M_DEFAULT}: {k_ms:.4f} ms device, torch._int_mm "
+            f"{lib_ms:.4f} ms device")
+    for name, h, c, k, leaky in WINO_CONVS:
+        qc = {"wino": _rand_qwino(g, c, k)}
+        for batch in (SLICE_BATCH, 256):
+            x = torch.randint(-127, 128, (batch, h, h, c), generator=g, device="cuda",
+                              dtype=torch.int8)
+            dev = wino_device_ms(x, qc, leaky, events_if_uncapturable=True)
+            d_ms = _direct_conv_ms(x, k, leaky, g)
+            log(f"{tag}: wino {name} batch {batch}: " + ", ".join(
+                f"{part} {v:.4f} ms {'wrapper' if part == 'wrapper' else 'device'}"
+                for part, v in dev.items()) + f"; direct int8 conv {d_ms:.4f} ms device")
+            del x
+        del qc
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -2219,7 +2422,7 @@ def main() -> None:
     experiments = {
         "adam_update": ("adam_update.cu", "experiments/opt_update_microbench.py:65",
                         timed(20, phase_adam, card)),
-        "int8_dot": ("int8_dot.cu", "experiments/mosaic_int8_dot.py:55",
+        "int8_dot": ("int8_conv.cu", "experiments/mosaic_int8_dot.py:55",
                      timed(21, phase_int8_dot, card)),
         "bf16_conv3x3": ("bf16_conv_stats.cu", "experiments/conv_bn_fuse_bench.py:47",
                          timed(22, phase_conv_stats, card)),
@@ -2314,10 +2517,11 @@ def main() -> None:
             "bound_by": b_by,
             "library_ms": None,
         })
-    # The Winograd kernel at head.conv1 (14x14, 2048 -> 1024, leaky), batch 16,
-    # launches per served batch of the wino engine; its ablation modes at the
-    # same geometry, launches from the ablation's own run.
-    k_ms, p_ms, b_ms, b_by, lib_ms, _ = wk["conv"]["head.conv1"]
+    # The Winograd conv (tap pass + tap GEMM, device time) at head.conv1
+    # (14x14, 2048 -> 1024, leaky), batch 16, launches (convs) per served
+    # batch of the wino engine; no one PyTorch call computes it. Its ablation
+    # modes at the same geometry, launches from the ablation's own run.
+    k_ms, p_ms, b_ms, b_by = wk["conv"]["head.conv1"][:4]
     record["kernels"].append({
         "name": "int8_wino",
         "route": "cuda",
@@ -2329,7 +2533,7 @@ def main() -> None:
         "plain_ms": p_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": lib_ms,
+        "library_ms": None,
     })
     for mode in ("taps", "dots", "dots-raw"):
         k_ms, p_ms, b_ms, b_by = wk["modes"][mode]
@@ -2347,8 +2551,9 @@ def main() -> None:
             "library_ms": None,
         })
     # The four experiments/ kernels at their harnesses' geometries (Adam at
-    # fc1, the int8 dot at l2-im2col, the conv at layer3 without stats, the
-    # bottleneck at layer1); launches from each harness's own run.
+    # fc1; the int8 dot, run by the int8 conv's kernel, at l2-im2col, device
+    # times; the conv at layer3 without stats; the bottleneck at layer1);
+    # launches from each harness's own run.
     for name, (src, line, r) in experiments.items():
         record["kernels"].append({
             "name": name,

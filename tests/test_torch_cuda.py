@@ -1,9 +1,10 @@
 """The CUDA kernels (NMS, the four fused-BN kernels, the int8 stem front, the
 int8 conv, the fused int8 bottleneck and stage chain, the per-tap int8
-Winograd conv with its ablation modes, and the four kernels of the ported
-experiments/ harnesses: the fused Adam update, the int8 dot + requant, the
-bf16 3x3 conv + BN statistics and the bf16 fused bottleneck) against their
-plain twins, on the card.
+Winograd conv (tap pass + tap GEMM) with its ablation modes, and the
+kernels of the ported experiments/ harnesses: the fused Adam update, the
+int8 dot + requant (the int8 conv's kernel on a 1x1 view), the bf16 3x3
+conv + BN statistics and the bf16 fused bottleneck) against their plain
+twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU and nvcc, and skip without
 them. Run them on the GPU machine with
@@ -487,6 +488,24 @@ def test_wino_kernel_equals_plain_twin(device, shape, ck, leaky):
     torch.cuda.synchronize()
     assert cuda_wino.LAUNCHES == {**before, "full": before["full"] + 1}
     assert got.dtype == torch.int8 and got.shape == ref.shape == (*shape, k)
+    assert torch.equal(got.cpu(), ref)
+
+
+# Every tile plan() can pick, forced: at a ragged Mt (odd H and W at batch
+# 3: 3 * 7 * 6 = 126 tiles) and at 2 * 14 * 14 = 392 tiles (several units a
+# block); C = 192 ends each tap in a half-empty 128-byte stage.
+@pytest.mark.parametrize("shape", [(3, 13, 11), (2, 28, 28)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("tile", [0, 1], ids=["128x64", "64x64"])
+def test_wino_every_plan_tile_equals_twin(device, monkeypatch, shape, tile):
+    from yolo_tpu_torch.serving import cuda_wino
+
+    assert len(cuda_wino.TILES) == 2
+    qw = random_qwino(sum(shape) + tile, 192, 128)
+    x = _x(5, (*shape, 192))
+    ref = cuda_wino.conv3x3_wino_reference(x, {"wino": _on(qw, "cpu")}, False)
+    monkeypatch.setattr(cuda_wino, "plan", lambda *a: tile)
+    got = cuda_wino.conv3x3_wino(x.to(device), {"wino": _on(qw, device)}, False)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)
 
 

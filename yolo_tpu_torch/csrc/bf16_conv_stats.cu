@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(const sm90::Geom g
 
 template <bool kStats>
 cudaError_t launch(sm90::Geom g, const Out& o, cudaStream_t stream) {
-  constexpr int kSmem = sm90::smem_bytes<kWG, kBN, 0>();
+  constexpr int kSmem = sm90::smem_bytes<kWG, kBN, sm90::kVec16, 0>();
   static int per_sm = -1;
   g.m_tiles = static_cast<int>((g.M + kBM - 1) / kBM);
   g.n_tiles = (g.Cout + kBN - 1) / kBN;

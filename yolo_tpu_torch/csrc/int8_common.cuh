@@ -1,7 +1,7 @@
 // Device helpers shared by the int8 serving kernels: 16-byte cp.async and
-// the mma.sync s8 product (int8_bottleneck.cu, int8_wino.cu, int8_dot.cu;
-// int8_conv.cu's mainloop is sm90_conv_core.cuh's wgmma), and the requant
-// epilogue of all of them, rounded in the op order of
+// the mma.sync s8 product (int8_bottleneck.cu; the mainloops of int8_conv.cu
+// and of int8_wino.cu's tap GEMM are sm90_conv_core.cuh's wgmma), q8 and
+// the requant epilogue of all of them, rounded in the op order of
 // yolo_tpu/serving/engine.py::_requant so that the kernels equal their eager
 // twins bit for bit.
 #pragma once

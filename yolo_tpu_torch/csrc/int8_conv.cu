@@ -8,7 +8,12 @@
 // the 4x4/s1 space-to-depth stem and the 7x7/s2 direct stem, the 1x1 convs
 // (stride 1 or 2), the 3x3 convs (stride 1 or 2) and the int8 fc1, taken as a
 // 1x1 conv over an (N, 1, 1, 50176) view. PyTorch has no int8 convolution
-// that keeps an int32 accumulator, so the engine runs all of them here.
+// that keeps an int32 accumulator, so the engine runs all of them here. It
+// also runs the int8 dot + requant of experiments/mosaic_int8_dot.py (the
+// TPU kernel `kernel` :55-61, entry `run` :64): clip(rint(float(a w) * m))
+// is the kNone epilogue with t = 0 (adding +0.0f changes no finite float
+// but -0, which rounds to 0 either way) on a 1x1 conv over an (M, 1, 1, K)
+// view of a (yolo_tpu_torch/experiments/mosaic_int8_dot.py::int8_dot).
 //
 // As a GEMM: M = N*Ho*Wo output pixels, Ncols = Cout, K = KH*KW*Cin in HWIO
 // order (tap-major, channel fastest). Activations are NHWC int8; the weights
@@ -131,7 +136,7 @@ __global__ void __launch_bounds__(sm90::kWgThreads*(kWG + 1), kWG == 1 ? 2 : 1)
   if (threadIdx.x == 0) {
     const uint32_t raw = sm90::smem_u32(smem_raw);
     const uint32_t bars = ((raw + 1023) & ~1023u) +
-                          sm90::stages_of<kWG>() * (BM + BN) * sm90::kStageBytes + kBars;
+                          sm90::stages_of<kWG, kGather>() * (BM + BN) * sm90::kStageBytes + kBars;
     for (int b = 0; b < 2; ++b) {
       sm90::mbar_init(bars + 8 * b, sm90::kWgThreads);            // operands b full
       sm90::mbar_init(bars + 16 + 8 * b, sm90::kWgThreads * kWG);  // operands b empty
@@ -264,7 +269,7 @@ __global__ void __launch_bounds__(256) int8_conv_kernel_reduce(const Epi e) {
 template <int kWG, int BN, int kGather>
 cudaError_t launch(sm90::Geom g, const Epi& e, cudaStream_t stream) {
   constexpr int BM = 64 * kWG, kThreads = sm90::kWgThreads * (kWG + 1);
-  constexpr int kSmem = sm90::smem_bytes<kWG, BN, extra_bytes<kWG, BN>()>();
+  constexpr int kSmem = sm90::smem_bytes<kWG, BN, kGather, extra_bytes<kWG, BN>()>();
   static int per_sm = -1;
   g.m_tiles = static_cast<int>((g.M + BM - 1) / BM);
   g.n_tiles = (g.Cout + BN - 1) / BN;

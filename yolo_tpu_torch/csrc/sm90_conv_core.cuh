@@ -1,5 +1,7 @@
 // The Hopper (sm_90a) implicit-GEMM mainloop shared by the int8 conv
-// (int8_conv.cu) and the bf16 3x3 conv (bf16_conv_stats.cu).
+// (int8_conv.cu, which also runs the int8 dot of the mosaic_int8_dot
+// harness as a 1x1 conv), the bf16 3x3 conv (bf16_conv_stats.cu) and the
+// Winograd conv's tap GEMM (int8_wino.cu).
 //
 // A conv as a GEMM: M = N*Ho*Wo output pixels, N = Cout, K = KH*KW*Cin in
 // HWIO order (tap-major, channel fastest). Both operands are K-major in
@@ -12,8 +14,9 @@
 //     wgmma's 128-byte-swizzled K-major layout: row r at r * 128 bytes, its
 //     16-byte chunk c at chunk c ^ (r % 8); every tile base is 1024-byte
 //     aligned. A stage feeds four wgmmas (k advances 32 bytes a time).
-//   * 4 stages (3 for one consumer warpgroup, so that two blocks fit an SM)
-//     form a ring with a full and an empty mbarrier each.
+//   * 4 stages (3 for one consumer warpgroup, so that two blocks fit an SM;
+//     8 for the segmented GEMM) form a ring with a full and an empty
+//     mbarrier each.
 //   * One producer warpgroup fills the ring with cp.async: 16-byte pieces,
 //     4-byte pieces where a row is only 4-byte aligned (Cin % 16 != 0 but
 //     Cin % 4 == 0: the space-to-depth stem, 12 channels), or a byte gather
@@ -38,10 +41,21 @@
 //   * Per-unit index arithmetic divides by FastDivs (multiply-high and
 //     shift): the producer is one warp a scheduler, and ~20 dependent
 //     instructions a runtime division cost it most of a short-K tile.
+//   * Segments (the Winograd conv's 16 taps): a unit may run `segments`
+//     GEMMs one after the other, A and B advancing a_seg / b_seg bytes from
+//     one to the next; the consumers call epi() after each (Unit::seg) with
+//     that segment's accumulator, and the ring runs on across segments, so
+//     the next segment's stages load while one finishes. The segments'
+//     A operand is a plain row-major (M, Cin) matrix (gather kRows). A
+//     conv has one segment, and its gathers compile without the segment
+//     loop: taken at run time, it cost the int8 conv 10-35% of its time.
 //
-// No setmaxnreg: at one block of 384 threads an SM every thread may hold
-// 168 registers, enough for a 64x256 float32 accumulator (128) and the
-// bf16 conv's stats epilogue (ptxas: 168, no spills).
+// A conv needs no setmaxnreg: at one block of 384 threads an SM every
+// thread may hold 168 registers, enough for a 64x256 float32 accumulator
+// (128) and the bf16 conv's stats epilogue (ptxas: 168, no spills). A
+// kernel that keeps more state across segments (the Winograd conv's four
+// float32 running sums) asks for kRegs: the producer gives registers back
+// (setmaxnreg.dec to 40) and the consumers take them (setmaxnreg.inc).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,14 +67,21 @@ namespace {
 namespace sm90 {
 
 constexpr int kStageBytes = 128;  // K bytes per stage: one 128-byte swizzle row
-// Stages of the ring: 4 with two consumer warpgroups, 3 with one.
-template <int kWG>
-__host__ __device__ constexpr int stages_of() {
-  return kWG == 2 ? 4 : 3;
-}
 constexpr int kWgThreads = 128;
 
-enum Gather { kVec16 = 0, kVec4 = 1, kByte = 2 };
+// A's gather: an im2col row in 16-byte, 4-byte or 1-byte pieces, or (kRows)
+// a plain row of an (M, Cin) matrix, one matrix a segment. Only kRows runs
+// more than one segment; the convs' gathers compile without the loop.
+enum Gather { kVec16 = 0, kVec4 = 1, kByte = 2, kRows = 3 };
+
+// Stages of the ring: 4 with two consumer warpgroups, 3 with one (so that
+// two blocks of the int8 conv's 64-row tiles fit an SM); 8 for the
+// segmented GEMM, one block an SM, whose units stream more operand bytes a
+// multiply-add (64-wide tiles) and so keep more in flight.
+template <int kWG, int kGather>
+__host__ __device__ constexpr int stages_of() {
+  return kGather == kRows ? 8 : kWG == 2 ? 4 : 3;
+}
 
 // Division by a divisor fixed for the launch, as a multiply-high and a
 // shift, exact for 0 <= n < 2^31 (the round-up method with p = 31 +
@@ -90,9 +111,11 @@ struct Geom {
   int K;           // KH * KW * Cin
   int kpad_bytes;  // bytes of one packed weight row
   long long M;     // N * Ho * Wo
-  int m_tiles, n_tiles, splits, k_stages;  // k_stages: stages of one split
+  int m_tiles, n_tiles, splits, k_stages;  // k_stages: stages of one split (of one segment)
   int units;                               // m_tiles * n_tiles * splits
   FastDiv f_ntiles, f_mtiles, f_hw, f_wo, f_ho, f_cin, f_kw;
+  int segments = 1;             // GEMMs a unit runs one after the other
+  long long a_seg = 0, b_seg = 0;  // bytes from one segment's A (B) to the next's
 };
 
 // Fills the FastDivs of g from its sizes (on the host, before a launch).
@@ -111,6 +134,7 @@ struct Unit {
   long long m0;
   int n0, split, k0;  // k0: first stage of the split
   int ord;            // the unit's place in its block's walk: 0, 1, 2, ...
+  int seg;            // the segment whose accumulator epi() gets
 };
 
 // Unit u, the ord-th of its block.
@@ -118,7 +142,7 @@ template <int BM, int BN>
 __device__ __forceinline__ Unit unit_of(const Geom& g, int u, int ord) {
   const int r = u / g.f_ntiles, nt = u - r * g.n_tiles;
   const int sp = r / g.f_mtiles, mt = r - sp * g.m_tiles;
-  return {static_cast<long long>(mt) * BM, nt * BN, sp, sp * g.k_stages, ord};
+  return {static_cast<long long>(mt) * BM, nt * BN, sp, sp * g.k_stages, ord, 0};
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -271,35 +295,45 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db,
 // ------------------------------------------------------------ the loop
 // Dynamic shared memory a block needs: the ring, kExtraBytes for the
 // kernel's epilogue, the barriers, and slack to align the ring to 1024 bytes.
-template <int kWG, int BN, int kExtraBytes>
+template <int kWG, int BN, int kGather, int kExtraBytes>
 __host__ __device__ constexpr int smem_bytes() {
-  return 1024 + stages_of<kWG>() * (64 * kWG + BN) * kStageBytes + kExtraBytes +
-         2 * stages_of<kWG>() * 8;
+  return 1024 + stages_of<kWG, kGather>() * (64 * kWG + BN) * kStageBytes + kExtraBytes +
+         2 * stages_of<kWG, kGather>() * 8;
 }
 
 // The producer warpgroup. Thread t fills 16-byte chunk t % 8 of rows t / 8
 // + 16 i of A and B in every stage. Its rows' pixels are decoded once per
 // unit (one division, then steps of 16 rows); the chunk's tap and channel
 // advance from stage to stage without dividing (16-byte gathers), so a row
-// costs a bounds check, an add and a cp.async per stage. All offsets are
-// 32-bit: the host refuses tensors of 2 GB or more.
+// costs a bounds check, an add and a cp.async per stage. All offsets within
+// one segment are 32-bit: the host refuses tensors of 2 GB or more (a
+// segment's; the segments' own offsets are 64-bit).
 template <int E, int BM, int BN, int kStages, int kGather, typename Pre>
 __device__ __forceinline__ void produce(const Geom& g, uint32_t sA, uint32_t sB, uint32_t full,
                                         uint32_t empty, int t, Pre& pre) {
   constexpr int kAP = BM / 16, kBP = BN / 16;  // rows this thread fills per stage
   constexpr int kStageElems = kStageBytes / E, kChunkElems = 16 / E;
+  constexpr bool kSeg = kGather == kRows;
   const int c = t % 8, r0 = t / 8;            // chunk c of rows r0 + 16 i
   const uint32_t swz = (c ^ (r0 % 8)) * 16;   // r0 + 16 i == r0 (mod 8)
   const int M = static_cast<int>(g.M), hw = g.Ho * g.Wo;
   const int d_oh = 16 / g.f_wo, d_ow = 16 - d_oh * g.Wo;  // a step of 16 output pixels
+  const int segments = kSeg ? g.segments : 1;
   int it = 0, ord = 0;
   for (int u = blockIdx.x; u < g.units; u += gridDim.x, ++ord) {
     const Unit un = unit_of<BM, BN>(g, u, ord);
     pre(un, t);  // the kernel's own loads for this unit's epilogue, if any
     // Row i: the element offset of its receptive field's origin (ih0, iw0,
-    // channel 0) in x; rows past M get ih0 far out, failing every bound check.
+    // channel 0) in x; rows past M get ih0 far out, failing every bound
+    // check. kRows: the row's offset in its segment's matrix, -1 past M.
     int off[kAP], ih0[kAP], iw0[kAP];
-    {
+    if constexpr (kGather == kRows) {
+#pragma unroll
+      for (int i = 0; i < kAP; ++i) {
+        const int m = static_cast<int>(un.m0) + r0 + 16 * i;
+        off[i] = m < M ? m * g.Cin : -1;
+      }
+    } else {
       int m = static_cast<int>(un.m0) + r0;
       const int n0 = m / g.f_hw, rem = m - n0 * hw, oh0 = rem / g.f_wo;
       int n = n0, oh = oh0, ow = rem - oh0 * g.Wo;
@@ -329,84 +363,94 @@ __device__ __forceinline__ void produce(const Geom& g, uint32_t sA, uint32_t sB,
       const int n = un.n0 + r0 + 16 * i;
       woff[i] = n < g.Cout ? n * g.kpad_bytes : -1;
     }
-    // The chunk's first K element at this unit's first stage, its tap and channel.
-    int k = un.k0 * kStageElems + c * kChunkElems;
-    const int tap0 = k / g.f_cin;
-    int ci = k - tap0 * g.Cin, kh = tap0 / g.f_kw, kw = tap0 - kh * g.KW;
-    for (int ks = 0; ks < g.k_stages; ++ks, ++it) {
-      const int st = it % kStages;
-      mbar_wait(empty + 8 * st, ((it / kStages) & 1) ^ 1);
-      const uint32_t a = sA + st * BM * kStageBytes + swz;
-      const uint32_t b = sB + st * BN * kStageBytes + swz;
-      if constexpr (kGather == kVec16) {  // 16 bytes of one tap (Cin * E % 16 == 0)
-        const bool kin = k < g.K;
-        const int delta = (kh * g.W + kw) * g.Cin + ci;
-#pragma unroll
-        for (int i = 0; i < kAP; ++i) {
-          const int ih = ih0[i] + kh, iw = iw0[i] + kw;
-          const bool ok = kin && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
-                          static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
-          cp_async16(a + (r0 + 16 * i) * kStageBytes, g.x + (ok ? (off[i] + delta) * E : 0), ok);
-        }
-      } else if constexpr (kGather == kVec4) {
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {  // 4-byte pieces never straddle a tap (Cin % 4 == 0)
-          const int kp = k + p * (4 / E);
-          const int tap = kp / g.f_cin, cp = kp - tap * g.Cin;
-          const int ph = tap / g.f_kw, pw = tap - ph * g.KW;
-          const bool kin = kp < g.K;
-          const int delta = (ph * g.W + pw) * g.Cin + cp;
+    for (int seg = 0; seg < segments; ++seg) {
+      const uint8_t* xs = kSeg ? g.x + seg * g.a_seg : g.x;
+      const uint8_t* ws = kSeg ? g.w + seg * g.b_seg : g.w;
+      // The chunk's first K element at this unit's first stage, its tap and channel.
+      int k = un.k0 * kStageElems + c * kChunkElems;
+      const int tap0 = k / g.f_cin;
+      int ci = k - tap0 * g.Cin, kh = tap0 / g.f_kw, kw = tap0 - kh * g.KW;
+      for (int ks = 0; ks < g.k_stages; ++ks, ++it) {
+        const int st = it % kStages;
+        mbar_wait(empty + 8 * st, ((it / kStages) & 1) ^ 1);
+        const uint32_t a = sA + st * BM * kStageBytes + swz;
+        const uint32_t b = sB + st * BN * kStageBytes + swz;
+        const int kb = (un.k0 + ks) * kStageBytes + c * 16;  // byte kb of each A (kRows) and B row
+        if constexpr (kGather == kRows) {  // 16 bytes of a row; none past Cin
 #pragma unroll
           for (int i = 0; i < kAP; ++i) {
-            const int ih = ih0[i] + ph, iw = iw0[i] + pw;
+            const bool ok = off[i] >= 0 && kb < g.Cin;
+            cp_async16(a + (r0 + 16 * i) * kStageBytes, xs + (ok ? off[i] + kb : 0), ok);
+          }
+        } else if constexpr (kGather == kVec16) {  // 16 bytes of one tap (Cin * E % 16 == 0)
+          const bool kin = k < g.K;
+          const int delta = (kh * g.W + kw) * g.Cin + ci;
+#pragma unroll
+          for (int i = 0; i < kAP; ++i) {
+            const int ih = ih0[i] + kh, iw = iw0[i] + kw;
             const bool ok = kin && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
                             static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
-            cp_async4(a + (r0 + 16 * i) * kStageBytes + 4 * p,
-                      g.x + (ok ? (off[i] + delta) * E : 0), ok);
+            cp_async16(a + (r0 + 16 * i) * kStageBytes, xs + (ok ? (off[i] + delta) * E : 0), ok);
           }
-        }
-      } else {  // bytes (E == 1): Cin = 3
+        } else if constexpr (kGather == kVec4) {
 #pragma unroll
-        for (int i = 0; i < kAP; ++i) {
-          uint32_t word[4] = {0u, 0u, 0u, 0u};
-          int tap = k / g.f_cin, cj = k - tap * g.Cin;
+          for (int p = 0; p < 4; ++p) {  // 4-byte pieces never straddle a tap (Cin % 4 == 0)
+            const int kp = k + p * (4 / E);
+            const int tap = kp / g.f_cin, cp = kp - tap * g.Cin;
+            const int ph = tap / g.f_kw, pw = tap - ph * g.KW;
+            const bool kin = kp < g.K;
+            const int delta = (ph * g.W + pw) * g.Cin + cp;
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int jh = tap / g.f_kw, jw = tap - jh * g.KW;
-            const int ih = ih0[i] + jh, iw = iw0[i] + jw;
-            if (k + j < g.K && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
-                static_cast<unsigned>(iw) < static_cast<unsigned>(g.W)) {
-              const uint8_t v = g.x[off[i] + (jh * g.W + jw) * g.Cin + cj];
-              word[j / 4] |= static_cast<uint32_t>(v) << (8 * (j % 4));
-            }
-            if (++cj == g.Cin) {
-              cj = 0;
-              ++tap;
+            for (int i = 0; i < kAP; ++i) {
+              const int ih = ih0[i] + ph, iw = iw0[i] + pw;
+              const bool ok = kin && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
+                              static_cast<unsigned>(iw) < static_cast<unsigned>(g.W);
+              cp_async4(a + (r0 + 16 * i) * kStageBytes + 4 * p,
+                        xs + (ok ? (off[i] + delta) * E : 0), ok);
             }
           }
-          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                           a + (r0 + 16 * i) * kStageBytes),
-                       "r"(word[0]), "r"(word[1]), "r"(word[2]), "r"(word[3])
-                       : "memory");
-        }
-      }
-      const int kb = (un.k0 + ks) * kStageBytes + c * 16;  // B: byte kb of each weight row
+        } else {  // bytes (E == 1): Cin = 3
 #pragma unroll
-      for (int i = 0; i < kBP; ++i) {
-        const bool ok = woff[i] >= 0 && kb < g.kpad_bytes;
-        cp_async16(b + (r0 + 16 * i) * kStageBytes, g.w + (ok ? woff[i] + kb : 0), ok);
-      }
-      if constexpr (kGather == kByte) mbar_arrive(full + 8 * st);  // the st.shared above
-      cp_async_arrive(full + 8 * st);
-      // The next stage: kStageElems further along K.
-      k += kStageElems;
-      if constexpr (kGather == kVec16) {
-        ci += kStageElems;
-        while (ci >= g.Cin) {
-          ci -= g.Cin;
-          if (++kw == g.KW) {
-            kw = 0;
-            ++kh;
+          for (int i = 0; i < kAP; ++i) {
+            uint32_t word[4] = {0u, 0u, 0u, 0u};
+            int tap = k / g.f_cin, cj = k - tap * g.Cin;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int jh = tap / g.f_kw, jw = tap - jh * g.KW;
+              const int ih = ih0[i] + jh, iw = iw0[i] + jw;
+              if (k + j < g.K && static_cast<unsigned>(ih) < static_cast<unsigned>(g.H) &&
+                  static_cast<unsigned>(iw) < static_cast<unsigned>(g.W)) {
+                const uint8_t v = xs[off[i] + (jh * g.W + jw) * g.Cin + cj];
+                word[j / 4] |= static_cast<uint32_t>(v) << (8 * (j % 4));
+              }
+              if (++cj == g.Cin) {
+                cj = 0;
+                ++tap;
+              }
+            }
+            asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                             a + (r0 + 16 * i) * kStageBytes),
+                         "r"(word[0]), "r"(word[1]), "r"(word[2]), "r"(word[3])
+                         : "memory");
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kBP; ++i) {
+          const bool ok = woff[i] >= 0 && kb < g.kpad_bytes;
+          cp_async16(b + (r0 + 16 * i) * kStageBytes, ws + (ok ? woff[i] + kb : 0), ok);
+        }
+        if constexpr (kGather == kByte) mbar_arrive(full + 8 * st);  // the st.shared above
+        cp_async_arrive(full + 8 * st);
+        // The next stage: kStageElems further along K.
+        k += kStageElems;
+        if constexpr (kGather == kVec16) {
+          ci += kStageElems;
+          while (ci >= g.Cin) {
+            ci -= g.Cin;
+            if (++kw == g.KW) {
+              kw = 0;
+              ++kh;
+            }
           }
         }
       }
@@ -415,35 +459,39 @@ __device__ __forceinline__ void produce(const Geom& g, uint32_t sA, uint32_t sB,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int BM, int BN, int kStages, typename Acc, typename Epi>
+template <int BM, int BN, int kStages, bool kSeg, typename Acc, typename Epi>
 __device__ __forceinline__ void consume(const Geom& g, uint32_t sA, uint32_t sB, uint32_t full,
                                         uint32_t empty, int wg, Epi& epi) {
   Acc acc[BN / 2];
+  const int segments = kSeg ? g.segments : 1;
   int it = 0, ord = 0;
   for (int u = blockIdx.x; u < g.units; u += gridDim.x, ++ord) {
-    const Unit un = unit_of<BM, BN>(g, u, ord);
+    Unit un = unit_of<BM, BN>(g, u, ord);
+    for (int seg = 0; seg < segments; ++seg) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-    fence_operands(acc);
-    int prev = 0;
-    for (int ks = 0; ks < g.k_stages; ++ks, ++it) {
-      const int st = it % kStages;
-      mbar_wait(full + 8 * st, (it / kStages) & 1);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
-      wgmma_fence();
-      const uint64_t da = desc_sw128(sA + st * BM * kStageBytes + wg * 64 * kStageBytes);
-      const uint64_t db = desc_sw128(sB + st * BN * kStageBytes);
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      fence_operands(acc);
+      int prev = 0;
+      for (int ks = 0; ks < g.k_stages; ++ks, ++it) {
+        const int st = it % kStages;
+        mbar_wait(full + 8 * st, (it / kStages) & 1);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
+        wgmma_fence();
+        const uint64_t da = desc_sw128(sA + st * BM * kStageBytes + wg * 64 * kStageBytes);
+        const uint64_t db = desc_sw128(sB + st * BN * kStageBytes);
 #pragma unroll
-      for (int kk = 0; kk < kStageBytes / 32; ++kk) wgmma(acc, da + 2 * kk, db + 2 * kk, 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's wgmmas are done with its tiles
-      if (ks > 0) mbar_arrive(empty + 8 * prev);
-      prev = st;
+        for (int kk = 0; kk < kStageBytes / 32; ++kk) wgmma(acc, da + 2 * kk, db + 2 * kk, 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's wgmmas are done with its tiles
+        if (ks > 0) mbar_arrive(empty + 8 * prev);
+        prev = st;
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      mbar_arrive(empty + 8 * prev);
+      un.seg = seg;
+      epi(acc, un);
     }
-    wgmma_wait<0>();
-    fence_operands(acc);
-    mbar_arrive(empty + 8 * prev);
-    epi(acc, un);
   }
 }
 
@@ -451,11 +499,12 @@ __device__ __forceinline__ void consume(const Geom& g, uint32_t sA, uint32_t sB,
 // and kWG consumer warpgroups. kExtraBytes of shared memory after the ring
 // belong to the kernel: the producer calls pre(unit, t, extra) at the start
 // of each unit (t: its thread, 0-127), the consumers epi(acc, unit, wg,
-// extra) at its end.
-template <int E, int kWG, int BN, int kGather, int kExtraBytes, typename Acc, typename Epi,
-          typename Pre>
+// extra) at the end of each of its segments. kRegs > 0: the consumers'
+// registers a thread, taken from the producer's (which keeps 40).
+template <int E, int kWG, int BN, int kGather, int kExtraBytes, typename Acc, int kRegs = 0,
+          typename Epi, typename Pre>
 __device__ __forceinline__ void run(const Geom& g, Epi& epi, Pre& pre) {
-  constexpr int BM = 64 * kWG, kStages = stages_of<kWG>();
+  constexpr int BM = 64 * kWG, kStages = stages_of<kWG, kGather>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sA = (raw + 1023) & ~1023u;
@@ -473,11 +522,14 @@ __device__ __forceinline__ void run(const Geom& g, Epi& epi, Pre& pre) {
   __syncthreads();
   const int wg = threadIdx.x / kWgThreads;
   if (wg == kWG) {
+    if constexpr (kRegs > 0) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     auto pre_t = [&](const Unit& un, int t) { pre(un, t, extra); };
     produce<E, BM, BN, kStages, kGather>(g, sA, sB, full, empty, threadIdx.x % kWgThreads, pre_t);
   } else {
+    if constexpr (kRegs > 0)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs) : "memory");
     auto epi_wg = [&](const Acc (&acc)[BN / 2], const Unit& un) { epi(acc, un, wg, extra); };
-    consume<BM, BN, kStages, Acc>(g, sA, sB, full, empty, wg, epi_wg);
+    consume<BM, BN, kStages, kGather == kRows, Acc>(g, sA, sB, full, empty, wg, epi_wg);
   }
 }
 

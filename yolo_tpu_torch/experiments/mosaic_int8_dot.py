@@ -1,15 +1,27 @@
 """int8 dot + requant throughput at the engine's GEMM geometries: ``python -m yolo_tpu_torch.experiments.mosaic_int8_dot``
 
 Port of experiments/mosaic_int8_dot.py. Its TPU kernel (the closure
-``kernel`` inside ``main()``, :55-61) becomes ``csrc/int8_dot.cu``
-(``yolo_int8_dot``): one (M, K) x (K, N) int8 dot into int32, times a
-per-column float32 scale, rounded half to even and clipped to +-127.
+``kernel`` inside ``main()``, :55-61, entry ``run`` :64): one (M, K) x (K,
+N) int8 dot into int32, times a per-column float32 scale, rounded half to
+even and clipped to +-127.
 
 - :func:`int8_dot` is the wrapper: CUDA tensors only, it launches the
-  kernel or raises;
+  kernel or raises. The kernel is the int8 conv's (``csrc/int8_conv.cu``
+  on the shared wgmma mainloop ``csrc/sm90_conv_core.cuh``): a 1x1 conv
+  over an (M, 1, 1, K) view of ``a`` with the ``"none"`` epilogue, ``m``
+  as the channel scale and ``t = 0``, which is this function bit for bit
+  (``acc * m + 0.0`` differs from ``acc * m`` only at -0, and both round
+  to 0). At the harness's M = 2^20 every case but full-fill is bound by
+  device memory (l2-im2col: 1.34 GB, 0.40 ms at 3.35 TB/s, against 309 G
+  operations, 0.16 ms at 1,979 TOPS); the core's persistent grid, 3-4
+  stage mbarrier ring and whole-row int8 stores serve that, and
+  ``cuda_int8.plan`` picks the tile (64-wide where N = 64). K = 300
+  leaves a's rows 4-byte aligned only: the core gathers them in 4-byte
+  pieces, zero past K;
 - :func:`int8_dot_reference` is its twin: a float64 matmul (exact here:
   every product is an integer below 2**14 and |sum| <= 127**2 * 1152 <
-  2**53), then the same float32 requant, so the kernel equals it bit for bit;
+  2**53), then the same float32 requant, so the kernel equals it bit for
+  bit;
 - :func:`run` times the kernel and ``torch._int_mm`` on the same operands
   (the library yardstick, timed here and used nowhere in the port) over the
   five cases of the TPU harness, with CUDA events.
@@ -20,6 +32,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -87,10 +100,11 @@ def _check(a, wk, m) -> None:
 def int8_dot(a: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
              wk: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M, K) int8 ``a`` times (K, N) int8 ``w``, requantized by ``m`` ((N,) or
-    (1, N) float32) to (M, N) int8 by ``csrc/int8_dot.cu``. ``wk``:
-    ``pack_weight(w)``, packed now if not given."""
+    (1, N) float32) to (M, N) int8 by the int8 conv kernel, a 1x1 conv over
+    an (M, 1, 1, K) view (module docstring). ``wk``: ``pack_weight(w)``,
+    packed now if not given."""
     global LAUNCHES
-    from yolo_tpu_torch.utils import kernels
+    from yolo_tpu_torch.serving import cuda_int8
 
     wk = pack_weight(w) if wk is None else wk
     _check(a, wk, m)
@@ -98,15 +112,17 @@ def int8_dot(a: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
         raise ValueError(f"int8_dot: w must be (K, N) = ({a.shape[1]}, {wk.shape[0]}), got "
                          f"{tuple(w.shape)}")
     M, K = a.shape
-    N, kpad = wk.shape
-    out = torch.empty((M, N), dtype=torch.int8, device=a.device)
-    lib = kernels.load()
-    with torch.cuda.device(a.device):
-        code = lib.yolo_int8_dot(a.data_ptr(), wk.data_ptr(), m.data_ptr(), out.data_ptr(), M,
-                                 K, N, kpad, torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_int8_dot launch")
+    N = wk.shape[0]
+    out = cuda_int8.launch(a.view(M, 1, 1, K), wk, m.reshape(N), _zeros(N, a.device),
+                           1, 1, 1, 0, "none")
     LAUNCHES += 1
-    return out
+    return out.view(M, N)
+
+
+@functools.lru_cache(maxsize=None)
+def _zeros(n: int, device: torch.device) -> torch.Tensor:
+    """The conv epilogue's shift t = 0, (n,) float32, made once per width and device."""
+    return torch.zeros(n, dtype=torch.float32, device=device)
 
 
 def work(M: int, K: int, N: int) -> Tuple[int, int]:

@@ -1,26 +1,32 @@
-"""Where does the Winograd kernel's time go? ``python -m yolo_tpu_torch.experiments.wino_ablate``
+"""Where does the Winograd conv's time go? ``python -m yolo_tpu_torch.experiments.wino_ablate``
 
-Port of experiments/wino_ablate.py. Times the kernel ``csrc/int8_wino.cu``
-in its four modes (``serving/cuda_wino.py``) at head-conv1 geometry (batch
+Port of experiments/wino_ablate.py (TPU kernel ``kernel_variant`` :57,
+entry ``make`` :145). Times the Winograd conv of ``csrc/int8_wino.cu`` in
+its four modes (``serving/cuda_wino.py``) at head-conv1 geometry (batch
 256, 14x14, C = K = 1024 by default) with CUDA events:
 
-- ``full``: the conv;
-- ``taps``: the tap build and requant only;
-- ``dots``: the 16 tap dots, dequant, inverse and epilogue on zero taps;
-- ``dots-raw``: the 16 tap dots only, epilogue on the raw accumulators.
+- ``full``: the conv, the tap pass then the tap GEMM;
+- ``taps``: the tap build and requant only (the tap pass writing taps 0-3
+  to the output, not the 16 taps to the scratch);
+- ``dots``: the tap GEMM (16 tap dots, dequant, inverse and epilogue) on a
+  zero scratch made before the timing;
+- ``dots-raw``: the tap GEMM with the epilogue on the raw accumulators.
 
-If ``full`` is close to ``taps + dots``, the tap build does not overlap the
-tensor cores. Then the tap-dot geometry sweep: one (M, C) x (C, K) int8 dot
-by ``torch._int_mm`` (the library yardstick, timed here and used nowhere in
-the port) at M = the kernel's 32 tile rows x1, x4 and x16, and at the conv's
-whole M. Operands are seeded on the card. Needs a CUDA device.
+A conv is two kernels now, so ``full`` is close to the tap pass plus
+``dots`` by construction; ``full - dots`` is what the tap pass costs
+inside the conv, and ``dots - dots-raw`` what the per-tap dequant and the
+inverse transform cost the GEMM, on the tensor cores' critical path. Then
+the tap-dot geometry sweep: one (M, C) x (C, K) int8 dot by
+``torch._int_mm`` (the library yardstick, timed here and used nowhere in
+the port) at M = the GEMM's 128 tile rows x1, x4 and x16, and at the
+conv's whole M. Operands are seeded on the card. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 
-ROWS = 32  # Winograd tiles per thread block of the kernel (csrc/int8_wino.cu kBM)
+ROWS = 128  # Winograd tiles in the tap GEMM's larger tile (cuda_wino.TILES[0])
 
 
 def run(batch: int = 256, h: int = 14, c: int = 1024, k: int = 1024, iters: int = 6,
@@ -43,9 +49,10 @@ def run(batch: int = 256, h: int = 14, c: int = 1024, k: int = 1024, iters: int 
           "dinv": torch.full((16, 1, 1), 0.01, device=dev)}
     card = torch.cuda.get_device_name(dev)
     dots, _, _ = cuda_wino.work(batch, h, h, c, k)
+    zeros = cuda_wino.zero_taps(x_q)  # the dots modes' taps, zero-filled outside the timing
     results = {}
     for mode in cuda_wino.MODES:
-        ms = device_time_ms(cuda_wino.wino_ablate, x_q, qw, mode, iters=iters, warmup=2)
+        ms = device_time_ms(cuda_wino.wino_ablate, x_q, qw, mode, zeros, iters=iters, warmup=2)
         results[mode] = ms
         print(f"{mode:9s} {ms:8.4f} ms ({dots / ms / 1e9:7.1f} int8 TOPS of the 16 tap dots); "
               f"batch {batch}, {h}x{h}, {c}->{k}; {card}", flush=True)

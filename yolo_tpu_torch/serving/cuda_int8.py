@@ -210,8 +210,10 @@ def launch_buffers(x_shape, cout: int, kh: int, kw: int, stride: int, pad: Pad, 
     return out, ws, tile, splits
 
 
-def _launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r) -> torch.Tensor:
-    global LAUNCHES
+def launch(x, wk, m, t, kh, kw, stride, pad, mode, res=None, r=None) -> torch.Tensor:
+    """One kernel call on checked CUDA operands (see :func:`conv_int8`); the
+    caller counts it. The int8 dot of ``experiments/mosaic_int8_dot.py``
+    runs here too, as a 1x1 conv with mode ``"none"`` and ``t = 0``."""
     from yolo_tpu_torch.utils import kernels
 
     n, h, w, cin = x.shape
@@ -235,7 +237,6 @@ def _launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r) -> torch.Tensor:
             tile, splits, ws.data_ptr() if ws is not None else None, stream,
         )
     kernels.check(code, "yolo_int8_conv launch")
-    LAUNCHES += 1
     return out
 
 
@@ -248,6 +249,7 @@ def conv_int8(x: torch.Tensor, wq: torch.Tensor, m: torch.Tensor, t: torch.Tenso
     The kernel on CUDA tensors, reading ``wk`` (``pack_weight(wq)``, packed
     now if not given); :func:`conv_int8_reference` on CPU tensors.
     """
+    global LAUNCHES
     if mode not in MODES:
         raise ValueError(f"conv_int8: mode must be one of {sorted(MODES)}, got {mode!r}")
     if x.device.type != "cuda":
@@ -255,7 +257,9 @@ def conv_int8(x: torch.Tensor, wq: torch.Tensor, m: torch.Tensor, t: torch.Tenso
     kh, kw = wq.shape[:2]
     wk = pack_weight(wq) if wk is None else wk
     _check(x, wk, m, t, mode, res, r, kh, kw)
-    return _launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r)
+    out = launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r)
+    LAUNCHES += 1
+    return out
 
 
 def work(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int, stride: int,

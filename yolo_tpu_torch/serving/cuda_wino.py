@@ -1,41 +1,64 @@
-"""Per-tap int8 Winograd F(2,3) conv through the CUDA kernel ``csrc/int8_wino.cu``.
+"""Per-tap int8 Winograd F(2,3) conv through the CUDA kernels of ``csrc/int8_wino.cu``.
 
 Port of the TPU kernel yolo_tpu/serving/pallas_wino.py::_wino_kernel (entry
 ``_wino_conv``, public ``conv3x3_wino_pallas``), and of its ablation
-variants in experiments/wino_ablate.py::kernel_variant as the kernel's
-``mode``:
+variants in experiments/wino_ablate.py::kernel_variant as the ``mode``:
 
 - ``"full"``: the conv, :func:`conv3x3_wino` (tap build, per-tap requant,
   16 int8 tap dots, dequant, inverse transform, bias, leaky or ReLU, int8);
 - ``"taps"``: the tap build and requant only; output (2i + r, 2j + s, k) is
   tap ``p = 2r + s`` of tile (i, j) at channel k (needs K <= C);
-- ``"dots"``: the tap build skipped; the dots, dequant, inverse and
-  epilogue run on all-zero taps, so every output is ``q(act(t_k))``;
+- ``"dots"``: the tap dots, dequant, inverse and epilogue on all-zero
+  taps, so every output is ``q(act(t_k))``;
 - ``"dots-raw"``: the 16 dots on zero taps; the epilogue runs on the raw
   accumulators of taps 12-15 (no dequant, no inverse), ``q(act(0 + t_k))``.
 
+On the H100 a conv is two kernels, as the TPU kernel builds its taps into
+a scratch and then runs one dot a tap: the tap pass reads x once and writes
+the requantized taps to a (16, Mt, C) int8 scratch (Mt = N * ceil(H/2) *
+ceil(W/2) tiles, allocated here with ``torch.empty``), and the tap GEMM
+runs the 16 tap dots on the shared wgmma mainloop
+(``csrc/sm90_conv_core.cuh``) with the dequant and the inverse transform
+after each tap and the requant at the end (the old single kernel rebuilt
+the taps in every 64-channel column block and ran ``mma.sync``). The
+wide convs are bound by the int8 tensor cores, layer1 by device memory,
+where the scratch costs 4x x's bytes written and read again.
+:func:`plan` picks the GEMM's tile by shape. ``"taps"`` is the tap pass
+alone, ``"dots"`` and ``"dots-raw"`` the GEMM alone on all-zero taps (made
+by :func:`zero_taps`; the caller may pass them in, so that their zero-fill
+is not part of a timed call). A conv
+counts once in :data:`LAUNCHES` though it launches two kernels, as
+``cuda_int8`` counts a split-K conv once.
+
 Its twins are :func:`conv3x3_wino_reference` (``winograd.conv3x3_wino_rq``)
-and :func:`wino_ablate_reference`; the kernel equals them bit for bit. On
+and :func:`wino_ablate_reference`; the kernels equal them bit for bit. On
 CPU tensors the wrappers run the twins. A CUDA tensor never reaches a twin:
-the kernel runs or the call raises. The kernel takes int8 NHWC activations
-at any N, H and W (odd and non-square included), C and K in multiples of 64,
+the kernels run or the call raises. They take int8 NHWC activations at any
+N, H and W (odd and non-square included), C and K in multiples of 64,
 16-byte aligned, and the weight taps packed K-major per tap, ``uk`` (16, K,
 C) (:func:`pack_taps`; ``engine.to_device`` stores it beside ``uq``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from yolo_tpu_torch.serving import winograd
 
-#: Kernel launches per mode since the counts were last reset (set each to 0 to reset).
+#: Winograd convs and ablation calls per mode since the counts were last
+#: reset (set each to 0 to reset); a "full" conv's two kernels count once.
 LAUNCHES = {"full": 0, "taps": 0, "dots": 0, "dots-raw": 0}
 
 MODES = {"full": 0, "taps": 1, "dots": 2, "dots-raw": 3}
-ALIGN = 64  # channel granularity of the kernel (C chunks and K column blocks)
+ALIGN = 64  # channel granularity of the kernels (C stages and K column blocks)
+#: The tap GEMM's tiles (tile rows, output channels): 128-row tiles run two
+#: consumer warpgroups a block, 64-row tiles one.
+TILES = ((128, 64), (64, 64))
+_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def pack_taps(uq: torch.Tensor) -> torch.Tensor:
@@ -46,6 +69,22 @@ def pack_taps(uq: torch.Tensor) -> torch.Tensor:
 def tiles(h: int, w: int) -> Tuple[int, int]:
     """The kernel's 2x2 output tiles a side (rows, columns)."""
     return (h + 1) // 2, (w + 1) // 2
+
+
+def scratch_shape(n: int, h: int, w: int, c: int) -> Tuple[int, int, int]:
+    """The tap pass's output: (16, Mt, C) int8, Mt = N * ceil(H/2) * ceil(W/2)."""
+    th, tw = tiles(h, w)
+    return 16, n * th * tw, c
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, h: int, w: int, c: int, k: int) -> int:
+    """The tap GEMM's tile by shape, an index into :data:`TILES`: 128-row
+    tiles (two consumer warpgroups) unless they would give fewer units than
+    half the SMs (layer4 and head_conv3 at batch 16, every conv at batch
+    1-2), then 64-row tiles, one consumer warpgroup, twice the units."""
+    mt = scratch_shape(n, h, w, c)[1]
+    return 0 if -(-mt // TILES[0][0]) * (k // ALIGN) >= _SMS // 2 else 1
 
 
 # ------------------------------------------------------------------ twins
@@ -96,25 +135,82 @@ def _check(x_q: torch.Tensor, qw: Dict, uk: torch.Tensor, mode: str) -> None:
             raise ValueError(f"int8_wino: {name} must be {numel} contiguous float32 values")
     if any(v.device != dev for v in (uk, qw["mw"], qw["t"], qw["dinv"])):
         raise ValueError("int8_wino: every operand must be on x's device")
-    if x_q.data_ptr() % 16 or uk.data_ptr() % 16:
-        raise ValueError("int8_wino: x and the packed taps must be 16-byte aligned")
+    if any(v.data_ptr() % 16 for v in (x_q, uk, qw["mw"], qw["t"])):
+        raise ValueError("int8_wino: x, the packed taps, mw and t must be 16-byte aligned")
+    _, mt, _ = scratch_shape(n, h, w, c)
+    if mt * c >= 2**31:
+        raise ValueError(f"int8_wino: a tap of the scratch, {mt} x {c}, must stay under 2 GB")
 
 
-def _launch(x_q: torch.Tensor, qw: Dict, mode: str, leaky: bool) -> torch.Tensor:
+# tap_pass and tap_gemm launch on the current device's current stream and
+# take operands that _check has passed; they are not counted (their callers
+# count), and chip_smoke.py times them one by one.
+def tap_pass(x_q: torch.Tensor, dinv: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Steps 1-2 (``winograd.tap_requant``): the (16, Mt, C) int8 taps, or
+    with ``out`` ((N, H, W, K) int8) the ``"taps"`` mode's output there."""
     from yolo_tpu_torch.utils import kernels
 
+    n, h, w, c = x_q.shape
+    dst = torch.empty(scratch_shape(n, h, w, c), dtype=torch.int8,
+                      device=x_q.device) if out is None else out
+    code = kernels.load().yolo_int8_wino_taps(
+        x_q.data_ptr(), dinv.data_ptr(), dst.data_ptr(), n, h, w, c, dst.shape[-1],
+        int(out is not None), torch.cuda.current_stream().cuda_stream)
+    kernels.check(code, "yolo_int8_wino_taps launch")
+    return dst
+
+
+def tap_gemm(vq: torch.Tensor, qw: Dict, uk: torch.Tensor, shape: Tuple[int, int, int],
+             leaky: bool, raw: bool = False) -> torch.Tensor:
+    """Steps 3-6 on the (16, Mt, C) taps ``vq`` of an (N, H, W) image batch:
+    the (N, H, W, K) int8 output (``raw``: the dots-raw epilogue), with
+    :func:`plan`'s tile."""
+    from yolo_tpu_torch.utils import kernels
+
+    n, h, w = shape
+    _, k, c = uk.shape
+    out = torch.empty((n, h, w, k), dtype=torch.int8, device=vq.device)
+    code = kernels.load().yolo_int8_wino_gemm(
+        vq.data_ptr(), uk.data_ptr(), qw["mw"].data_ptr(), qw["t"].data_ptr(),
+        out.data_ptr(), n, h, w, c, k, plan(n, h, w, c, k), int(raw), int(leaky),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(code, "yolo_int8_wino_gemm launch")
+    return out
+
+
+def zero_taps(x_q: torch.Tensor) -> torch.Tensor:
+    """All-zero (16, Mt, C) int8 taps for x's shape, on x's device: the
+    dots modes' A operand."""
+    return torch.zeros(scratch_shape(*x_q.shape), dtype=torch.int8, device=x_q.device)
+
+
+def _launch(x_q: torch.Tensor, qw: Dict, mode: str, leaky: bool,
+            zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     uk = qw["uk"] if "uk" in qw else pack_taps(qw["uq"])
     _check(x_q, qw, uk, mode)
     n, h, w, c = x_q.shape
     k = uk.shape[1]
-    out = torch.empty((n, h, w, k), dtype=torch.int8, device=x_q.device)
-    lib = kernels.load()
-    with torch.cuda.device(x_q.device):
-        code = lib.yolo_int8_wino(
-            x_q.data_ptr(), uk.data_ptr(), qw["mw"].data_ptr(), qw["t"].data_ptr(),
-            qw["dinv"].data_ptr(), out.data_ptr(), n, h, w, c, k, MODES[mode], int(leaky),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_int8_wino launch")
+    # Entering the device's context costs host time on every call; only a
+    # tensor on another than the current device needs it.
+    on_current = x_q.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_current else torch.cuda.device(x_q.device):
+        if mode == "taps":
+            out = tap_pass(x_q, qw["dinv"], torch.empty((n, h, w, k), dtype=torch.int8,
+                                                         device=x_q.device))
+        else:
+            if mode == "full":
+                vq = tap_pass(x_q, qw["dinv"])
+            elif zeros is None:
+                vq = zero_taps(x_q)
+            elif (zeros.dtype != torch.int8 or tuple(zeros.shape) != scratch_shape(n, h, w, c)
+                  or zeros.device != x_q.device or not zeros.is_contiguous()
+                  or zeros.data_ptr() % 16):
+                raise ValueError(f"int8_wino: zero taps must be contiguous 16-byte aligned "
+                                 f"{scratch_shape(n, h, w, c)} int8 on x's device")
+            else:
+                vq = zeros
+            out = tap_gemm(vq, qw, uk, (n, h, w), leaky, raw=mode == "dots-raw")
     LAUNCHES[mode] += 1
     return out
 
@@ -128,14 +224,16 @@ def conv3x3_wino(x_q: torch.Tensor, qc: Dict, leaky: bool = True) -> torch.Tenso
     return _launch(x_q, qc["wino"], "full", leaky)
 
 
-def wino_ablate(x_q: torch.Tensor, qw: Dict, mode: str) -> torch.Tensor:
+def wino_ablate(x_q: torch.Tensor, qw: Dict, mode: str,
+                zeros: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel in ablation ``mode`` with the leaky epilogue (module
-    docstring); the twin on CPU tensors."""
+    docstring); the twin on CPU tensors. ``zeros``: the dots modes' all-zero
+    taps (:func:`zero_taps`), made here when not given."""
     if mode not in MODES:
         raise ValueError(f"wino mode must be one of {sorted(MODES)}, got {mode!r}")
     if x_q.device.type != "cuda":
         return wino_ablate_reference(x_q, qw, mode)
-    return _launch(x_q, qw, mode, leaky=True)
+    return _launch(x_q, qw, mode, leaky=True, zeros=zeros)
 
 
 # ------------------------------------------------------------------ work

@@ -122,15 +122,15 @@ def load() -> ctypes.CDLL:
         lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), vp]
         lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
                                         ctypes.POINTER(ci), vp]
-        lib.yolo_int8_wino.argtypes = [vp, vp, vp, vp, vp, vp, *([ci] * 7), vp]
+        lib.yolo_int8_wino_taps.argtypes = [vp, vp, vp, *([ci] * 6), vp]
+        lib.yolo_int8_wino_gemm.argtypes = [vp, vp, vp, vp, vp, *([ci] * 8), vp]
         lib.yolo_adam_update.argtypes = [vp, vp, vp, vp, vp, cll, vp]
-        lib.yolo_int8_dot.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, vp]
         lib.yolo_bf16_conv3x3.argtypes = [vp, vp, vp, vp, vp, *([ci] * 6), vp]
         lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 5), vp]
         for fn in (lib.yolo_nms, lib.yolo_bn_stats, lib.yolo_bn_normalize,
                    lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx, lib.yolo_quant_s2d,
                    lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
-                   lib.yolo_int8_wino, lib.yolo_adam_update, lib.yolo_int8_dot,
+                   lib.yolo_int8_wino_taps, lib.yolo_int8_wino_gemm, lib.yolo_adam_update,
                    lib.yolo_bf16_conv3x3, lib.yolo_bf16_bottleneck):
             fn.restype = ci
         lib.yolo_cuda_error_string.argtypes = [ci]
