@@ -16,10 +16,13 @@ Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
-2. build: nvcc compiles yolo_tpu_torch/csrc/*.cu for sm_90a; the kernels on
-   the shared wgmma core (csrc/sm90_conv_core.cuh: the int8 conv, which
-   also runs the int8 dot, the bf16 conv and the Winograd conv's tap GEMM)
-   must show IGMMA / HGMMA and no IMMA / HMMA in cuobjdump's SASS;
+2. build: nvcc compiles yolo_tpu_torch/csrc/*.cu for sm_90a (ptxas'
+   registers and spills logged a kernel); the kernels on the shared wgmma
+   core (csrc/sm90_conv_core.cuh: the int8 conv, which also runs the int8
+   dot, the bf16 conv and the Winograd conv's tap GEMM) and on its
+   fused-bottleneck tile (csrc/sm90_bottleneck_tile.cuh: the int8 block and
+   chain, the bf16 bottleneck) must show IGMMA / HGMMA and no IMMA / HMMA
+   in cuobjdump's SASS;
 3. kernel vs plain: the NMS kernel's keep masks against its plain torch twin
    on CPU copies, over seeded batches (K = 98, 162, 392; eps 1e-6 and 0;
    t 0.4 and 0.5; tie storms; all-invalid rows), timed with CUDA events;
@@ -72,8 +75,10 @@ Phases:
    chain geometry (seeded q-params), batch 2 and 16, the chain kernel on the
    stage's whole chain (layer1's downsample block included) and the block
    kernel on the stage's identity block, bit for bit against the twins on
-   the card; kernel, twin and per-conv (int8 conv kernel) times beside the
-   bound; resident blocks against tiles at batch 1;
+   the card; kernel and per-conv (int8 conv kernel) device times (CUDA
+   graphs) and wrapper times, and the twin's, beside the bound; every tile
+   plan() weighs, forced, at batch 16; resident blocks against tiles at
+   batch 1;
 15. stage-chain slice: build_int8_predict with impl["layer1".."layer4"] =
    chain_int8 on the phase-12 model: one served batch launches the stem
    kernel once, the conv kernel 18 times and the chain kernel 4 times
@@ -124,7 +129,8 @@ Phases:
    with stats alone);
 23. bf16 fused bottleneck (csrc/bf16_bottleneck.cu) vs its twin at layer1's
    widths (256 / 64), batch 2 and 64, H = W = 112 and 13: within 2 bf16 ulps
-   of max|twin|, no NaN; then python -m
+   of max|twin|, no NaN; the kernel's device time (CUDA graph) at batch 64,
+   112x112, on plan()'s tile and on every tile forced; then python -m
    yolo_tpu_torch.experiments.fused_block_pallas (kernel, twin, cuDNN's three
    bf16 convs).
 Phases 20-23 drive each harness through its main() with its kernel's
@@ -137,8 +143,11 @@ convs, the int8 dot in its five cases at M = 2^20 beside torch._int_mm,
 and the Winograd conv at its six geometries at batch 16 and 256 beside the
 direct int8 conv (a Winograd wrapper that a CUDA graph cannot capture is
 timed between CUDA events instead and printed as "wrapper", host time
-included): the way to hold two versions of the kernels against each other
-on one card.
+included), the fused int8 chain and identity block at each stage's
+full-width geometry at batch 16 beside the per-conv path, and the bf16
+fused bottleneck at batch 64, 112x112, 256/64 (device times from CUDA
+graphs, and the wrapper's): the way to hold two versions of the kernels
+against each other on one card.
 
 Any failure raises and exits nonzero. The last lines are the kernels' JSON
 record, the card line, and {"ok": true, "device": {...}}. Needs one CUDA
@@ -321,24 +330,30 @@ def phase_build() -> None:
             spills = line.strip()
         elif "registers" in line:
             log(f"[2]   {kernel[:90]}: {line.split(':', 1)[1].strip()}; {spills}")
-        elif "error" in line:
+        elif "error" in line or "wgmma" in line:
             log(f"[2]   {line.strip()}")
     # The kernels on the shared core run on wgmma (the int8 conv, which also
-    # runs the int8 dot; the bf16 conv; the Winograd conv's tap GEMM): IGMMA /
-    # HGMMA in their SASS, and no mma.sync (IMMA / HMMA) anywhere in them.
-    on_core = ("int8_conv_kernel<", "conv3x3_kernel<", "wino_gemm_kernel<")
+    # runs the int8 dot; the bf16 conv; the Winograd conv's tap GEMM), and so
+    # do the fused bottlenecks on its tile routine (the int8 block and chain,
+    # the bf16 bottleneck): IGMMA / HGMMA in their SASS, and no mma.sync
+    # (IMMA / HMMA) anywhere in them.
+    on_core = ("int8_conv_kernel<", "conv3x3_kernel<", "wino_gemm_kernel<",
+               "int8_bottleneck_kernel(", "int8_chain_kernel(", "bf16_bottleneck_kernel(")
+    bf16 = ("conv3x3_kernel<", "bf16_bottleneck_kernel(")
     checked = 0
     for fn, ops in sass_counts(path).items():
         if any(name in fn for name in on_core):
             checked += 1
-            want, banned = ("HGMMA", "HMMA") if "conv3x3_kernel<" in fn else ("IGMMA", "IMMA")
+            want, banned = (("HGMMA", "HMMA") if any(n in fn for n in bf16)
+                            else ("IGMMA", "IMMA"))
             log(f"[2]   SASS {fn[:70]}: " + ", ".join(f"{k} {v}" for k, v in sorted(ops.items())))
             if not ops.get(want) or ops.get(banned):
                 raise AssertionError(f"{fn}: expected {want} and no {banned} in its SASS, got "
                                      f"{ops}")
-    # 12 int8 conv instantiations (4 tiles x 3 gathers), 2 bf16, 4 tap GEMM.
-    if checked != 18:
-        raise AssertionError(f"found {checked} wgmma kernels in the SASS, expected 18")
+    # 12 int8 conv instantiations (4 tiles x 3 gathers), 2 bf16, 4 tap GEMM,
+    # the int8 bottleneck and chain, the bf16 bottleneck.
+    if checked != 21:
+        raise AssertionError(f"found {checked} wgmma kernels in the SASS, expected 21")
 
 
 def sass_counts(path: Path) -> dict:
@@ -1528,6 +1543,19 @@ def _per_conv(x, qblocks):
     return x
 
 
+def device_or_wrapper_ms(fn) -> tuple:
+    """(ms, "device") from a CUDA graph of ``fn``, or (ms, "wrapper") between
+    CUDA events where a graph cannot capture it."""
+    import torch
+
+    try:
+        return graph_ms(fn, iters=10), "device"
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        log(f"    (no CUDA graph: {str(err).splitlines()[0][:120]}; CUDA events instead)")
+        return cuda_ms(fn, iters=10), "wrapper"
+
+
 def phase_chain_kernels(card: str) -> dict:
     import torch
 
@@ -1540,13 +1568,12 @@ def phase_chain_kernels(card: str) -> dict:
     for stage, h, cin, c, p, nb, ds in CHAINS:
         qbs = [_rand_qblock(g, cin if b == 0 else c, c, p, ds and b == 0) for b in range(nb)]
         ident = qbs[1] if ds else qbs[0]  # the stage's identity block, for the block kernel
-        t = cb.pick_tile(h, h)[0]
-        tiles = (-(-h // t)) ** 2
+        pl = cb.plan(1, h, h, cin, c, p, ds=ds)
         cb.chain_int8(rand_i8((1, h, h, cin)), qbs)
         torch.cuda.synchronize()
         log(f"[14] {stage} batch 1: the chain kernel keeps {cb.LAST_GRID} thread blocks "
-            f"resident for {tiles} tiles of {t}x{t} on the card's SMs; the block kernel "
-            f"launches {tiles} blocks")
+            f"resident for {pl.tiles} tiles of {pl.th}x{pl.tw} ({pl.stages} ring stages, "
+            f"{pl.smem} bytes of shared memory) on the card's SMs")
         for batch in (2, SLICE_BATCH):
             x, xi = rand_i8((batch, h, h, cin)), rand_i8((batch, h, h, c))
             checks = (("chain", lambda: cb.chain_int8(x, qbs),
@@ -1561,27 +1588,46 @@ def phase_chain_kernels(card: str) -> dict:
                 if got.shape != ref.shape or not torch.equal(got, ref):
                     raise AssertionError(f"{name} kernel at {stage}, batch {batch}, differs from "
                                          f"its twin in {int((got != ref).sum())} values")
+            pl = cb.plan(batch, h, h, cin, c, p, ds=ds)
             log(f"[14] {stage} batch {batch}: chain of {nb} blocks ({cin}->{c}, P {p}, "
-                f"{h}x{h}; {grid} resident thread blocks) and its identity block == twins "
-                f"bit for bit")
+                f"{h}x{h}; {pl.th}x{pl.tw} tiles, {grid} resident thread blocks) and its "
+                f"identity block == twins bit for bit")
             del got, ref
-        # Times at the slice's batch: kernel, twin (float64 conv) and the per-conv
-        # path (3 or 4 int8 conv kernel launches per block) on the same inputs.
+        # Times at the slice's batch: kernel (device time from a CUDA graph, and
+        # the wrapper's between CUDA events), twin (float64 conv) and the
+        # per-conv path (3 or 4 int8 conv kernel launches per block) on the same
+        # inputs; then every tile plan() weighs, forced (the numbers behind it).
         for name, blocks, xin, cin_ in (("chain", qbs, x, cin), ("block", [ident], xi, c)):
-            kernel = (lambda: cb.chain_int8(xin, blocks)) if name == "chain" else (
-                lambda: cb.block_int8(xin, blocks[0]))
-            k_ms = cuda_ms(kernel, iters=10)
-            conv_ms = cuda_ms(lambda: _per_conv(xin, blocks), iters=10)
+            launch = cb.chain_int8 if name == "chain" else (
+                lambda xq, bl, tile=None: cb.block_int8(xq, bl[0], tile=tile))
+            k_ms = graph_ms(lambda: launch(xin, blocks))
+            k_wrap = cuda_ms(lambda: launch(xin, blocks), iters=10)
+            conv_ms = graph_ms(lambda: _per_conv(xin, blocks))
+            conv_wrap = cuda_ms(lambda: _per_conv(xin, blocks), iters=10)
             p_ms = cuda_ms(lambda: cb.chain_int8_reference(xin, blocks), iters=2, warmup=1)
             ops, n_bytes = cb.work(SLICE_BATCH, h, h, cin_, c, p, len(blocks),
                                    blocks[0]["downsample"] is not None)
             b_ms, b_by = bound(n_bytes, ops, INT8_OPS_S)
-            out[name][stage] = (k_ms, p_ms, b_ms, b_by, conv_ms, ops)
+            out[name][stage] = (k_ms, p_ms, b_ms, b_by, conv_ms, ops, k_wrap, conv_wrap)
             log(f"[14] {card}: {name} kernel, {stage}, {len(blocks)} block(s), batch "
-                f"{SLICE_BATCH}: {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOPS; bound {b_ms:.4f} ms "
-                f"by {b_by}, {100 * b_ms / k_ms:.1f}%); per-conv path {conv_ms:.4f} ms "
-                f"(fused / per-conv {k_ms / conv_ms:.3f}); twin {p_ms:.2f} ms; library: none "
-                f"(no PyTorch call computes a fused int8 bottleneck)")
+                f"{SLICE_BATCH}: {k_ms:.4f} ms device, {k_wrap:.4f} ms wrapper "
+                f"({ops / k_ms / 1e9:.1f} TOPS; bound {b_ms:.4f} ms by {b_by}, "
+                f"{100 * b_ms / k_ms:.1f}%); per-conv path {conv_ms:.4f} ms device, "
+                f"{conv_wrap:.4f} ms wrapper (fused / per-conv {k_ms / conv_ms:.3f} device); "
+                f"twin {p_ms:.2f} ms; library: none (no PyTorch call computes a fused int8 "
+                f"bottleneck)")
+            tiles = {}
+            for tile in cb.TILES:
+                try:
+                    cb.layout(SLICE_BATCH, h, h, cin_, c, p, 1, *tile)
+                except ValueError:
+                    continue
+                tiles[tile] = graph_ms(lambda: launch(xin, blocks, tile=tile))
+            chosen = cb.plan(SLICE_BATCH, h, h, cin_, c, p, ds=name == "chain" and ds)
+            log(f"[14]   {name} {stage} batch {SLICE_BATCH}, each tile forced, device ms: "
+                + ", ".join(f"{t[0]}x{t[1]} {v:.4f}" for t, v in tiles.items())
+                + f"; plan() picks {chosen.th}x{chosen.tw}, fastest "
+                + "{0}x{1}".format(*min(tiles, key=tiles.get)))
         del qbs, ident, x, xi
         torch.cuda.empty_cache()
     return out
@@ -2311,6 +2357,21 @@ def phase_bf16_bottleneck(card: str) -> dict:
             f"{err:.3e} (2 ulps of max|twin| {tol:.3e}), no NaN")
         del args, ref, got
     torch.cuda.empty_cache()
+    # Device time (CUDA graph) at the harness's layer1 geometry, on plan()'s
+    # tile and on each tile it weighs, forced.
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+
+    args = fb.random_block(fb.N, fb.H, fb.W, fb.CIN, fb.P, "cuda", seed=9)
+    packed = fb.pack_weights(args[1], args[3], args[5])
+    out["device_ms"] = graph_ms(lambda: fb.fused_bottleneck(*args, packed=packed))
+    tiles = {t: graph_ms(lambda: fb.fused_bottleneck(*args, packed=packed, tile=t))
+             for t in cb.TILES}
+    pl = cb.plan(fb.N, fb.H, fb.W, fb.CIN, fb.CIN, fb.P, e=2)
+    log(f"[23] {card}: layer1 b{fb.N}: kernel {out['device_ms']:.4f} ms device ({pl.th}x{pl.tw} "
+        f"tiles, {pl.stages} ring stages); each tile forced: "
+        + ", ".join(f"{t[0]}x{t[1]} {v:.4f}" for t, v in tiles.items()) + " ms device")
+    del args, packed
+    torch.cuda.empty_cache()
     res, out["launches"] = _harness(fb, 23)
     out["ms"], out["plain_ms"], out["library_ms"] = res["kernel"], res["plain"], res["cudnn"]
     flops, n_bytes = fb.work(fb.N, fb.H, fb.W, fb.CIN, fb.P)
@@ -2374,6 +2435,50 @@ def int8_conv_times(root: Path) -> None:
             del x
         del qc
         torch.cuda.empty_cache()
+    bottleneck_times(root, tag)
+
+
+def bottleneck_times(root: Path, tag: str) -> None:
+    """Device ms (CUDA graphs; "wrapper" where a graph cannot capture the
+    call) and wrapper ms of the fused int8 chain (#9) and identity block (#8)
+    at each stage's full-width geometry at batch 16, beside the per-conv
+    path on the same inputs, and of the bf16 fused bottleneck (#12) at the
+    harness's layer1 geometry, through the package of the checkout at
+    ``root`` (imported by ``int8_conv_times``)."""
+    import torch
+
+    from yolo_tpu_torch.experiments import fused_block_pallas as fb
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+
+    for module in (cb, fb):
+        if not Path(module.__file__).resolve().is_relative_to(root.resolve()):
+            raise SystemExit(f"chip_smoke: imported {module.__file__}, not {root}'s package")
+    g = torch.Generator(device="cuda").manual_seed(52)
+    for stage, h, cin, c, p, nb, ds in CHAINS:
+        qbs = [_rand_qblock(g, cin if b == 0 else c, c, p, ds and b == 0) for b in range(nb)]
+        ident = qbs[1] if ds else qbs[0]
+        x = torch.randint(-127, 128, (SLICE_BATCH, h, h, cin), generator=g, device="cuda",
+                          dtype=torch.int8)
+        xi = torch.randint(-127, 128, (SLICE_BATCH, h, h, c), generator=g, device="cuda",
+                           dtype=torch.int8)
+        times = []
+        for name, fn in (("chain", lambda: cb.chain_int8(x, qbs)),
+                         ("per-conv chain", lambda: _per_conv(x, qbs)),
+                         ("block", lambda: cb.block_int8(xi, ident)),
+                         ("per-conv block", lambda: _per_conv(xi, [ident]))):
+            ms, kind = device_or_wrapper_ms(fn)
+            times.append(f"{name} {ms:.4f} ms {kind}, {cuda_ms(fn, iters=10):.4f} wrapper")
+        log(f"{tag}: bottleneck {stage} batch {SLICE_BATCH} ({nb} blocks): " + "; ".join(times))
+        del qbs, ident, x, xi
+        torch.cuda.empty_cache()
+    args = fb.random_block(fb.N, fb.H, fb.W, fb.CIN, fb.P, "cuda", seed=9)
+    packed = fb.pack_weights(args[1], args[3], args[5])
+    fn = lambda: fb.fused_bottleneck(*args, packed=packed)  # noqa: E731
+    ms, kind = device_or_wrapper_ms(fn)
+    log(f"{tag}: bf16 bottleneck b{fb.N} {fb.H}x{fb.W} {fb.CIN}/{fb.P}: {ms:.4f} ms {kind}, "
+        f"{cuda_ms(fn, iters=10):.4f} wrapper")
+    del args, packed
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -2503,7 +2608,7 @@ def main() -> None:
     for name, key, line, count in (
             ("int8_bottleneck", "block", 49, ch_launches["identity blocks via block_int8"][3]),
             ("int8_chain", "chain", 253, ch_launches["chains on layers 1-4"][2])):
-        k_ms, p_ms, b_ms, b_by, _, _ = ck[key]["layer1"]
+        k_ms, p_ms, b_ms, b_by = ck[key]["layer1"][:4]
         record["kernels"].append({
             "name": name,
             "route": "cuda",

@@ -119,7 +119,12 @@ def test_unsupported_shapes_raise():
 
 
 def test_tiles_and_work():
-    assert [cb.pick_tile(s, s) for s in (112, 56, 28, 14)] == [(8, 8), (8, 8), (7, 7), (7, 7)]
+    # The kernels' tile at each stage of the full-width engine at batch 16
+    # (tests/test_torch_bottleneck_plan.py holds plan() in full).
+    stages = ((112, 64, 256, 64, True), (56, 512, 512, 128, False),
+              (28, 1024, 1024, 256, False), (14, 2048, 2048, 512, False))
+    tiles = [cb.plan(16, h, h, cin, c, p, ds=ds) for h, cin, c, p, ds in stages]
+    assert [(t.th, t.tw) for t in tiles] == [(8, 16), (8, 8), (8, 16), (8, 8)]
     # layer1 at 448x448: 3 blocks (the first with its 64 -> 256 downsample), per image.
     ops, n_bytes = cb.work(1, 112, 112, 64, 256, 64, 3, True)
     px = 112 * 112

@@ -390,9 +390,9 @@ def test_bottleneck_kernel_equals_plain_twin(device, case):
 
 
 # (N, H, W, Cin, C, P, blocks, downsample): a ds first block (layer1's
-# shape class), identity chains, one block, and a chain of 512 tiles, more
-# than the card holds at once (2 thread blocks an SM), so that resident
-# blocks each walk several tiles between grid barriers.
+# shape class), identity chains, one block, and a chain of 256 tiles (8 x 16),
+# more than the card holds at once (one thread block an SM), so that
+# resident blocks each walk several tiles between grid barriers.
 CHAIN_CASES = [(2, 12, 10, 64, 256, 64, 3, True), (2, 9, 9, 128, 128, 64, 2, False),
                (1, 14, 14, 128, 128, 64, 1, False), (3, 16, 11, 64, 128, 64, 4, True),
                (2, 7, 7, 256, 256, 128, 3, False), (8, 64, 64, 64, 64, 64, 2, False)]
@@ -411,9 +411,38 @@ def test_chain_kernel_equals_plain_twin(device, case):
     got = cb.chain_int8(x.to(device), [_on(qb, device) for qb in qbs])
     torch.cuda.synchronize()
     assert cb.LAUNCHES == {**before, "chain": before["chain"] + 1}
-    tiles = n * -(-h // cb.pick_tile(h, w)[0]) * -(-w // cb.pick_tile(h, w)[1])
+    tiles = cb.plan(n, h, w, cin, c, p, ds=ds).tiles
     assert 0 < cb.LAST_GRID <= tiles
     assert torch.equal(got.cpu(), ref)
+
+
+# Every tile plan() can return, forced, on ragged images (13 and 15 leave
+# 7-wide, 8-wide and narrower remainders; 9 rows), the downsample block, a
+# chain of the 8-block limit, and P = 128 (two column halves a stage).
+TILE_CHAIN_CASES = [(2, 13, 15, 64, 256, 64, 2, True), (1, 9, 15, 128, 128, 128, 2, False),
+                    (1, 15, 13, 64, 128, 64, 8, True)]
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (16, 8), (14, 7), (8, 8), (7, 7)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", TILE_CHAIN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_chain_kernel_on_every_tile_equals_plain_twin(device, case, tile):
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+
+    assert tile in cb.TILES
+    n, h, w, cin, c, p, nb, ds = case
+    qbs = [random_qblock(7 * b + nb, cin if b == 0 else c, c, p, ds=ds and b == 0)
+           for b in range(nb)]
+    x = _x(3, (n, h, w, cin))
+    ref = cb.chain_int8_reference(x, [_on(qb, "cpu") for qb in qbs])
+    got = cb.chain_int8(x.to(device), [_on(qb, device) for qb in qbs], tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    xi = _x(4, (n, h, w, c))
+    qb = qbs[1]
+    got = cb.block_int8(xi.to(device), _on(qb, device), tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cb.block_int8_reference(xi, _on(qb, "cpu")))
 
 
 def test_bottleneck_kernels_reject_what_they_do_not_take(device):
@@ -663,6 +692,23 @@ def test_bf16_bottleneck_kernel_equals_plain_twin(device, case):
     got = fb.fused_bottleneck(*args).float()
     torch.cuda.synchronize()
     assert fb.LAUNCHES == before + 1
+    assert not bool(got.isnan().any())
+    assert float((got - ref).abs().max()) <= 2 * bf16_ulp(float(ref.abs().max()))
+
+
+# Every tile plan() can return, forced, at layer1's widths on ragged 13x13
+# and 9x15 images and at the narrowest widths.
+@pytest.mark.parametrize("tile", [(8, 16), (16, 8), (14, 7), (8, 8), (7, 7)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", [(1, 13, 13, 256, 64), (2, 9, 15, 64, 32), (1, 13, 13, 16, 16)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_bf16_bottleneck_on_every_tile_equals_plain_twin(device, case, tile):
+    from yolo_tpu_torch.experiments import fused_block_pallas as fb
+
+    args = fb.random_block(*case, device, seed=3 * sum(case))
+    ref = fb.reference(*args).float()
+    got = fb.fused_bottleneck(*args, tile=tile).float()
+    torch.cuda.synchronize()
     assert not bool(got.isnan().any())
     assert float((got - ref).abs().max()) <= 2 * bf16_ulp(float(ref.abs().max()))
 

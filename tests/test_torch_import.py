@@ -92,7 +92,8 @@ def test_kernel_build_flags():
     assert [p.name for p in kernels.sources()] == [
         "adam_update.cu", "bf16_bottleneck.cu", "bf16_conv_stats.cu", "fused_bn.cu",
         "int8_bottleneck.cu", "int8_conv.cu", "int8_wino.cu", "nms.cu",
-        "quant_s2d.cu", "bf16_common.cuh", "int8_common.cuh", "sm90_conv_core.cuh"]
+        "quant_s2d.cu", "bf16_common.cuh", "int8_common.cuh", "sm90_bottleneck_tile.cuh",
+        "sm90_conv_core.cuh"]
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

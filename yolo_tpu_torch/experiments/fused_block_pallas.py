@@ -10,7 +10,9 @@ bf16 where the TPU kernel rounds them.
 - :func:`fused_bottleneck` is the wrapper: CUDA tensors only, it launches
   the kernel or raises. It takes any H and W (the TPU kernel left the rows
   past the last multiple of its row tile unwritten) and CIN, P in multiples
-  of 16;
+  of 16; the kernel runs the int8 chain's tile routine
+  (``csrc/sm90_bottleneck_tile.cuh``) in bf16 on the output tile that
+  ``serving/cuda_bottleneck.plan`` picks;
 - :func:`reference` is its twin, the TPU harness's ``reference`` (:129-150):
   three float32 convs of the bf16 values (TF32 off), y1 and y2 rounded to
   bf16. The sums are taken in another order, so kernel and twin agree to a
@@ -28,6 +30,8 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Tuple
 
+from yolo_tpu_torch.serving import cuda_bottleneck
+
 import torch
 import torch.nn.functional as F
 
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 LAUNCHES = 0
 
 ALIGN = 16  # CIN and P: multiples of 16 (one bf16 mma depth)
-K_ALIGN = 32  # the kernel's K step: packed weights are zero-padded to it
+K_ALIGN = 32  # packed weight rows are zero-padded to it (64-byte rows)
 # experiments/fused_block_pallas.py:159: layer1 at 448x448.
 N, H, W, CIN, P = 64, 112, 112, 256, 64
 
@@ -99,11 +103,13 @@ def _check(x, w1, b1, w2, b2, w3, b3) -> None:
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3,
-                     packed: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+                     packed: Optional[Tuple[torch.Tensor, ...]] = None,
+                     tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """relu(x + conv3(relu(conv2(relu(conv1 x))))) by ``csrc/bf16_bottleneck.cu``:
     x (N, H, W, CIN) bf16 NHWC; w1 (CIN, P), w2 (3, 3, P, P), w3 (P, CIN) bf16;
     b1, b2 (P,), b3 (CIN,) float32 -> (N, H, W, CIN) bf16. ``packed``:
-    ``pack_weights(w1, w2, w3)``, packed now if not given."""
+    ``pack_weights(w1, w2, w3)``, packed now if not given; ``tile``: the
+    output tile (TH, TW), ``cuda_bottleneck.plan``'s if not given."""
     global LAUNCHES
     from yolo_tpu_torch.utils import kernels
 
@@ -111,12 +117,14 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3,
     w1p, w2p, w3p = pack_weights(w1, w2, w3) if packed is None else packed
     n, h, w, cin = x.shape
     p = w1.shape[1]
+    pl = (cuda_bottleneck.plan(n, h, w, cin, cin, p, e=2) if tile is None
+          else cuda_bottleneck.layout(n, h, w, cin, cin, p, 2, *tile))
     out = torch.empty_like(x)
     lib = kernels.load()
     with torch.cuda.device(x.device):
         code = lib.yolo_bf16_bottleneck(
             x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
-            w3p.data_ptr(), b3.data_ptr(), out.data_ptr(), n, h, w, cin, p,
+            w3p.data_ptr(), b3.data_ptr(), out.data_ptr(), n, h, w, cin, p, pl.th, pl.tw,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "yolo_bf16_bottleneck launch")
     LAUNCHES += 1

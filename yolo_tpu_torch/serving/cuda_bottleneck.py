@@ -22,12 +22,17 @@ On CPU tensors the wrappers run the twins. A CUDA tensor never reaches a
 twin: the kernel runs or the call raises. The kernel takes C, P and the
 chain's input channels in multiples of 64 (every full-width stage), int8
 NHWC, 16-byte aligned; anything else raises.
+
+Both kernels run ``csrc/sm90_bottleneck_tile.cuh``'s tile routine, which
+the bf16 fused bottleneck (``experiments/fused_block_pallas.py``) shares;
+:func:`plan` picks its output tile for all three.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,13 +40,12 @@ from yolo_tpu_torch.serving import cuda_int8, engine
 
 #: Kernel launches since the counts were last reset (set each to 0 to reset).
 LAUNCHES = {"bottleneck": 0, "chain": 0}
-#: Thread blocks the last chain launch kept resident (at most one tile each at a time).
+#: Thread blocks the last launch kept resident (one an SM, each walking tiles).
 LAST_GRID = 0
 
 ALIGN = 64  # channel granularity of the kernels (K steps and column chunks)
 MAX_CHAIN = 8  # bottlenecks in one chain launch
 PTRS_PER_BLOCK = 13
-TILES = (8, 7)  # square output tiles the kernels take (halo <= 128 pixels)
 
 
 # ------------------------------------------------------------------ twins
@@ -103,10 +107,108 @@ def check_kernel(x: torch.Tensor, c: int, p: int) -> None:
         raise ValueError(f"x must not be empty, got {tuple(x.shape)}")
 
 
-def pick_tile(h: int, w: int) -> Tuple[int, int]:
-    """The square output tile (8 or 7 pixels a side) that pads the image least."""
-    t = min(TILES, key=lambda t: -(-h // t) * -(-w // t) * t * t)
-    return t, t
+# ------------------------------------------------------------------ plan
+#: Output tiles (TH, TW) plan() weighs: halo and tile rows of each fill 64-row
+#: wgmma blocks with little padding (180 / 192 and 128 / 128 at 8 x 16 and
+#: 16 x 8; 144 / 192 and 98 / 128 at 14 x 7; 100 / 128 and 64 / 64 at 8 x 8;
+#: 81 / 128 and 49 / 64 at 7 x 7).
+TILES = ((8, 16), (16, 8), (14, 7), (8, 8), (7, 7))
+SMEM = 232448  # an H100's shared memory per block
+MAX_ROW_BLOCKS = 4  # 64-row blocks of the halo or the tile (two items per warpgroup)
+MIN_STAGES, MAX_STAGES = 3, 8
+STAGE_K = 128  # bytes of K a ring stage holds
+B_ROWS = 128  # weight rows a ring stage holds
+SMS = 132  # an H100 SXM's SMs: one resident thread block each
+# The cost model's rates, per SM and clock: 64 x 64 x 32 bytes of K per
+# wgmma in 32 clocks at the card's dense rate (bf16 and int8 alike); bytes
+# from L2 into shared memory; clocks of one epilogue of 64 x 64 outputs.
+# A ring shallower than DEEP_RING stages costs RING_PENALTY a stage short
+# (the chip run's forced tiles: at layer2 the 8 x 8 tile's 6 stages matched
+# the 8 x 16 tile's 4 with a third more halo and weight traffic a pixel).
+WGMMA_CLK, L2_BYTES_CLK, EPI_CLK = 32, 32, 200
+DEEP_RING, RING_PENALTY = 5, 0.05
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch's tiling, as the kernels lay it out
+    (``sm90_bottleneck_tile.cuh::make_tiling``)."""
+    th: int
+    tw: int
+    tiles: int  # N * ceil(H / TH) * ceil(W / TW)
+    m1_blocks: int  # 64-row blocks of the (TH + 2) x (TW + 2) halo
+    m2_blocks: int  # 64-row blocks of the TH x TW tile
+    stages: int  # depth of the weight / gather ring
+    smem: int  # dynamic shared memory bytes
+
+
+def _halves(cols: int, blocks: int) -> int:
+    return 2 if cols % B_ROWS == 0 and blocks <= 2 else 1
+
+
+def layout(n: int, h: int, w: int, cin: int, c: int, p: int, e: int, th: int,
+           tw: int) -> Plan:
+    """The kernels' layout of tile (th, tw) for x (n, h, w, cin) through P = p
+    to C = c, e bytes an element; raises ValueError where they refuse it."""
+    m1, m2 = (th + 2) * (tw + 2), th * tw
+    m1b, m2b = -(-m1 // 64), -(-m2 // 64)
+    if m1b > MAX_ROW_BLOCKS or m2b > MAX_ROW_BLOCKS:
+        raise ValueError(f"tile {th}x{tw}: its halo ({m1}) or tile ({m2}) rows exceed "
+                         f"{MAX_ROW_BLOCKS} blocks of 64")
+    ldy = p * e + 16
+    fixed = 1024 + m1 * ldy + m2b * 64 * ldy + m1b * 64 // 16 * 128 * 4
+    stage = (m1b * 64 + B_ROWS) * STAGE_K
+    if m2b * 64 * (64 * _halves(c, m2b) * e + 16) > stage:
+        raise ValueError(f"tile {th}x{tw}: conv3's staging rows exceed a ring stage")
+    stages = min(MAX_STAGES, (SMEM - fixed) // (stage + 16))
+    if stages < MIN_STAGES:
+        raise ValueError(f"tile {th}x{tw} at P = {p}: y1 and y2 leave shared memory for "
+                         f"{stages} ring stages, fewer than {MIN_STAGES}")
+    tiles = n * -(-h // th) * -(-w // tw)
+    return Plan(th, tw, tiles, m1b, m2b, stages, fixed + stages * (stage + 16))
+
+
+def cost(pl: Plan, cin: int, c: int, p: int, e: int, ds: bool = False, sms: int = SMS) -> float:
+    """Clocks of one launch on ``sms`` SMs by the cost model: a tile takes
+    the longer of its wgmmas and its bytes from L2 (every column block's
+    weight rows, zero padding included, and the halo's x), plus its
+    epilogues, more where the ring is shallow; each SM walks
+    ceil(tiles / sms) tiles."""
+    def product(cols, k_bytes, blocks, a_rows=0):
+        nh = _halves(cols, blocks)
+        chunks, ks = -(-cols // (64 * nh)), -(-k_bytes // STAGE_K)
+        items = blocks * nh
+        mma = chunks * ks * items * (STAGE_K // 32) * WGMMA_CLK
+        l2 = chunks * ks * (64 * nh + a_rows) * STAGE_K
+        return mma, l2, chunks * -(-items // 2) * EPI_CLK
+
+    parts = [product(p, cin * e, pl.m1_blocks, pl.m1_blocks * 64),
+             product(p, 9 * p * e, pl.m2_blocks), product(c, p * e, pl.m2_blocks)]
+    if ds:
+        parts.append(product(c, cin * e, pl.m2_blocks, pl.m2_blocks * 64))
+    mma, l2, epi = (sum(v) for v in zip(*parts))
+    shallow = 1 + RING_PENALTY * max(0, DEEP_RING - pl.stages)
+    return -(-pl.tiles // sms) * (max(mma, l2 / L2_BYTES_CLK) + epi) * shallow
+
+
+def plan(n: int, h: int, w: int, cin: int, c: int, p: int, e: int = 1, ds: bool = False,
+         sms: int = SMS) -> Plan:
+    """The tile of :data:`TILES` that the cost model times fastest for a
+    bottleneck (chain) over x (n, h, w, cin) through P = p to C = c, e bytes
+    an element (1: the int8 kernels, 2: the bf16 one); ``ds``: its first
+    block carries the downsample. Ties go to the earlier tile."""
+    best = None
+    for th, tw in TILES:
+        try:
+            pl = layout(n, h, w, cin, c, p, e, th, tw)
+        except ValueError:
+            continue
+        t = cost(pl, cin, c, p, e, ds, sms)
+        if best is None or t < best[0]:
+            best = (t, pl)
+    if best is None:
+        raise ValueError(f"no tile of {TILES} fits P = {p} in shared memory")
+    return best[1]
 
 
 # ------------------------------------------------------------------ launch
@@ -145,11 +247,13 @@ def _pointer_array(qblocks: Sequence[Dict], dev, keep: List[torch.Tensor]):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def block_int8(x_q: torch.Tensor, qb: Dict) -> torch.Tensor:
+def block_int8(x_q: torch.Tensor, qb: Dict,
+               tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One identity bottleneck: (N, H, W, C) int8 -> (N, H, W, C) int8.
 
-    The kernel ``yolo_int8_bottleneck`` on CUDA tensors;
-    :func:`block_int8_reference` on CPU tensors.
+    The kernel ``yolo_int8_bottleneck`` on CUDA tensors, on :func:`plan`'s
+    tile unless ``tile`` (TH, TW) is given; :func:`block_int8_reference` on
+    CPU tensors.
     """
     if qb["downsample"] is not None:
         raise ValueError("block_int8 runs identity blocks; a downsample block is a chain's "
@@ -159,26 +263,32 @@ def block_int8(x_q: torch.Tensor, qb: Dict) -> torch.Tensor:
         return block_int8_reference(x_q, qb)
     from yolo_tpu_torch.utils import kernels
 
+    global LAST_GRID
     n, h, w, _ = x_q.shape
-    th, tw = pick_tile(h, w)
+    pl = plan(n, h, w, c, c, p) if tile is None else layout(n, h, w, c, c, p, 1, *tile)
     keep: List[torch.Tensor] = []
     ptrs = _pointer_array([qb], x_q.device, keep)
     out = torch.empty_like(x_q)
+    grid = ctypes.c_int(0)
     lib = kernels.load()
     with torch.cuda.device(x_q.device):
         code = lib.yolo_int8_bottleneck(x_q.data_ptr(), out.data_ptr(), ptrs, n, h, w, c, p,
-                                        th, tw, torch.cuda.current_stream().cuda_stream)
+                                        pl.th, pl.tw, ctypes.byref(grid),
+                                        torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "yolo_int8_bottleneck launch")
     LAUNCHES["bottleneck"] += 1
+    LAST_GRID = grid.value
     return out
 
 
-def chain_int8(x_q: torch.Tensor, qblocks: Sequence[Dict]) -> torch.Tensor:
+def chain_int8(x_q: torch.Tensor, qblocks: Sequence[Dict],
+               tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """A stage's stride-1 bottlenecks: (N, H, W, Cin) int8 -> (N, H, W, C) int8.
 
     The first block may carry a stride-1 downsample (layer1's block 0). One
-    launch of ``yolo_int8_chain`` on CUDA tensors; :func:`chain_int8_reference`
-    on CPU tensors.
+    launch of ``yolo_int8_chain`` on CUDA tensors, on :func:`plan`'s tile
+    unless ``tile`` (TH, TW) is given; :func:`chain_int8_reference` on CPU
+    tensors.
     """
     c, p = _check(x_q, qblocks)
     if x_q.device.type != "cuda":
@@ -187,7 +297,9 @@ def chain_int8(x_q: torch.Tensor, qblocks: Sequence[Dict]) -> torch.Tensor:
 
     global LAST_GRID
     n, h, w, cin = x_q.shape
-    th, tw = pick_tile(h, w)
+    ds = qblocks[0]["downsample"] is not None
+    pl = plan(n, h, w, cin, c, p, ds=ds) if tile is None else layout(n, h, w, cin, c, p, 1,
+                                                                       *tile)
     keep: List[torch.Tensor] = []
     ptrs = _pointer_array(qblocks, x_q.device, keep)
     out = torch.empty((n, h, w, c), dtype=torch.int8, device=x_q.device)
@@ -198,7 +310,7 @@ def chain_int8(x_q: torch.Tensor, qblocks: Sequence[Dict]) -> torch.Tensor:
     with torch.cuda.device(x_q.device):
         code = lib.yolo_int8_chain(
             x_q.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(),
-            barrier.data_ptr(), ptrs, len(qblocks), n, h, w, cin, c, p, th, tw,
+            barrier.data_ptr(), ptrs, len(qblocks), n, h, w, cin, c, p, pl.th, pl.tw,
             ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
     kernels.check(code, "yolo_int8_chain launch")
     LAUNCHES["chain"] += 1

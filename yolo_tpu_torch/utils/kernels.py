@@ -119,14 +119,14 @@ def load() -> ctypes.CDLL:
         lib.yolo_quant_s2d.argtypes = [vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp]
         lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 16), vp, vp]
         ptrs = ctypes.POINTER(vp)
-        lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), vp]
+        lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), ctypes.POINTER(ci), vp]
         lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
                                         ctypes.POINTER(ci), vp]
         lib.yolo_int8_wino_taps.argtypes = [vp, vp, vp, *([ci] * 6), vp]
         lib.yolo_int8_wino_gemm.argtypes = [vp, vp, vp, vp, vp, *([ci] * 8), vp]
         lib.yolo_adam_update.argtypes = [vp, vp, vp, vp, vp, cll, vp]
         lib.yolo_bf16_conv3x3.argtypes = [vp, vp, vp, vp, vp, *([ci] * 6), vp]
-        lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 5), vp]
+        lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 7), vp]
         for fn in (lib.yolo_nms, lib.yolo_bn_stats, lib.yolo_bn_normalize,
                    lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx, lib.yolo_quant_s2d,
                    lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
