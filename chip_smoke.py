@@ -25,13 +25,18 @@ Phases:
    in cuobjdump's SASS;
 3. kernel vs plain: the NMS kernel's keep masks against its plain torch twin
    on CPU copies, over seeded batches (K = 98, 162, 392; eps 1e-6 and 0;
-   t 0.4 and 0.5; tie storms; all-invalid rows), timed with CUDA events;
+   t 0.4 and 0.5; tie storms; all-invalid rows; rows all valid at -inf; one
+   class at K = 1024 with a row of one repeated box); at (1, 16, 64, 256) x
+   K = 98 and (256, 392) the kernel's device time (CUDA graph) beside an empty
+   launch of the same grid, its bound and the twin's time, and the wrapper's
+   time and host time a call;
 4. slice: YOLOInference.predict_batch_arrays on 16 seeded uint8 images with
    the median decoded score as threshold; the NMS launch count must grow,
    keep masks must equal decode + the plain NMS on CPU copies, and one
    image's raw grid must match the same model on the CPU;
 5. entry point: the predict CLI on a saved .pth and a few seeded JPEGs;
-6. timing (information only): img/s at batch 1, 16 and 64;
+6. timing (information only): img/s at batch 1, 16 and 64; NMS's share of
+   the batch at batch 1;
 7. fused-BN kernels vs plain twins: every kernel at the (M, C) of the
    training slice's BN layers at batch 16, float32 and bf16, residual and
    ReLU on and off, against the twins on the same card; reductions run
@@ -51,8 +56,10 @@ Phases:
    synchronizing calls per step, top kernels and peak memory for fused_bn
    False / "stats" / "full", fp32 at batch 16 and 32, bf16 at batch 32 and
    64;
-11. int8 kernels vs plain twins: the stem front at batch 1, 16 and 64 on
-   448x448 uint8 and float32 images, and the int8 conv at every distinct
+11. int8 kernels vs plain twins: the stem front at batch 1, 16, 64 and 256
+   on 448x448 uint8 and float32 images (device time from CUDA graphs beside
+   the byte bound, the wrapper's time and host time a call, the twin's), and
+   at ragged widths and on a misaligned view, and the int8 conv at every distinct
    conv geometry and epilogue of the full-width engine at batch 2 (plus the
    direct 7x7 stem), int8 output and int32 accumulator, bit for bit against
    the twins on the card, and likewise fc1 at batch 1, 16 and 17, every
@@ -70,7 +77,8 @@ Phases:
    engine gives identical detections; the predict CLI with --int8
    --save-engine, then --engine;
 13. timing (information only): int8 and fp32 img/s at batch 1, 16, 64 and
-   256, the idle share, and each kernel's share of device time;
+   256, the idle share, and each kernel's share of device time; NMS's share
+   of the int8 batch at batch 1;
 14. fused bottleneck kernels vs plain twins: at each stage's full-width
    chain geometry (seeded q-params), batch 2 and 16, the chain kernel on the
    stage's whole chain (layer1's downsample block included) and the block
@@ -136,7 +144,9 @@ Phases:
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
-``python3 chip_smoke.py --int8-conv-times DIR`` instead times the int8 conv
+``python3 chip_smoke.py --int8-conv-times DIR`` instead times the NMS kernel
+at phase 3's shapes and the stem front at batch 1 to 256 (device time from
+CUDA graphs, the wrapper's time and host time a call), and the int8 conv
 of the checkout at DIR (device time from CUDA graphs, and the wrapper's) at
 every distinct engine geometry at batch 16, with the sums over all 58
 convs, the int8 dot in its five cases at M = 2^20 beside torch._int_mm,
@@ -383,36 +393,86 @@ def sass_counts(path: Path) -> dict:
 
 
 # ---------------------------------------------------------------- phase 3
-def _case(seed: int, n: int, K: int, ties: bool):
+# (batch, K) at which the NMS kernel is timed: the slice's K = 98 from one
+# image to 256, and K = 392 (a 14x14x2 grid).
+NMS_TIMED = ((1, 98), (SLICE_BATCH, 98), (64, 98), (256, 98), (256, 392))
+NMS_THREADS = 512  # csrc/nms.cu's block: one image a block
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return, issue only (no
+    synchronize inside the timed loop), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / calls
+
+
+def nms_kernel_ms(cuda_nms, args) -> float:
+    """Device ms of the NMS kernel alone (``cuda_nms._launch``, no checks and
+    no work around it) at IoU 0.4 and eps 1e-6, from a CUDA graph."""
+    t, eps = float(np.float32(IOU_T)), float(np.float32(1e-6))
+    return graph_ms(lambda: cuda_nms._launch(*args, t, eps), iters=50)
+
+
+def empty_launch_ms(blocks: int, threads: int) -> float:
+    """Device ms of one launch of ``blocks`` empty blocks of ``threads``
+    threads, from a CUDA graph as ``graph_ms`` times a kernel: the floor that
+    one launch of that grid cannot go below."""
+    import torch
+
+    from yolo_tpu_torch.utils import kernels
+
+    lib = kernels.load()
+    return graph_ms(lambda: kernels.check(
+        lib.yolo_empty(blocks, threads, torch.cuda.current_stream().cuda_stream), "yolo_empty"))
+
+
+def _case(seed: int, n: int, K: int, kind: str):
     """Seeded detections (numpy). ``ties``: 3 score levels incl. both signed
-    zeros, boxes drawn from 4 per image. The last row (of several) is all invalid."""
+    zeros, boxes drawn from 4 per image; ``minus_inf``: every other row all
+    valid at score -inf; ``single_class``: one class, the first row one box
+    repeated (every pair overlaps). The last row (of several) is all invalid."""
     r = np.random.default_rng(seed)
     boxes = r.uniform(0.05, 0.95, size=(n, K, 4)).astype(np.float32)
     boxes[..., 2:] *= 0.4
     scores = r.uniform(size=(n, K)).astype(np.float32)
-    if ties:
+    cls = r.integers(0, 4, size=(n, K)).astype(np.int32)
+    valid = r.uniform(size=(n, K)) < 0.75
+    if kind == "ties":
         boxes = np.take_along_axis(
             boxes, r.integers(0, 4, size=(n, K, 1)).repeat(4, axis=2), axis=1)
         scores = np.array([0.0, -0.0, 0.5], np.float32)[r.integers(0, 3, size=(n, K))]
-    cls = r.integers(0, 4, size=(n, K)).astype(np.int32)
-    valid = r.uniform(size=(n, K)) < 0.75
+    elif kind == "minus_inf":
+        scores[::2] = -np.inf
+        valid[::2] = True
+    elif kind == "single_class":
+        cls[:] = 0
+        boxes[0] = boxes[0, 0]
     if n > 1:
         valid[-1] = False
     return boxes, scores, cls, valid
 
 
-def phase_kernel_vs_plain() -> dict:
+def phase_kernel_vs_plain(card: str) -> dict:
     import torch
 
     from yolo_tpu_torch.ops import cuda_nms
     from yolo_tpu_torch.ops.decode import Detections
 
     dev = torch.device("cuda")
-    cases = [(n, 98, False) for n in (1, SLICE_BATCH, 64, 256)]
-    cases += [(256, 162, False), (256, 392, False), (256, 98, True), (256, 392, True)]
+    cases = [(n, 98, "uniform") for n in (1, SLICE_BATCH, 64, 256)]
+    cases += [(256, 162, "uniform"), (256, 392, "uniform"), (256, 98, "ties"),
+              (256, 392, "ties"), (SLICE_BATCH, 98, "minus_inf"), (4, 1024, "single_class")]
     n_cases, mismatches, timings = 0, 0, {}
-    for ci, (n, K, ties) in enumerate(cases):
-        arrays = _case(1000 + ci, n, K, ties)
+    for ci, (n, K, kind) in enumerate(cases):
+        arrays = _case(1000 + ci, n, K, kind)
         cpu = Detections(*(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays))
         gpu = Detections(*(t.to(dev) for t in cpu))
         for eps in (1e-6, 0.0):
@@ -423,23 +483,28 @@ def phase_kernel_vs_plain() -> dict:
                 bad = int((got.cpu() != ref).sum())
                 mismatches += bad
                 n_cases += 1
-                log(f"[3] n={n:3d} K={K:3d} ties={ties!s:5} eps={eps:g} t={t}: "
+                log(f"[3] n={n:3d} K={K:4d} {kind:12} eps={eps:g} t={t}: "
                     f"kept {int(ref.sum())}/{int(cpu.valid.sum())}, mismatches {bad}")
-        if not ties:
+        if kind == "uniform" and (n, K) in NMS_TIMED:
             args = (gpu.boxes, gpu.scores, gpu.class_ids, gpu.valid)
-            k_ms = cuda_ms(lambda: cuda_nms.nms(gpu, IOU_T), iters=200)
+            call = lambda: cuda_nms.nms(gpu, IOU_T)  # noqa: E731
+            dev_ms = nms_kernel_ms(cuda_nms, args)
+            floor_ms = empty_launch_ms(n, NMS_THREADS)
+            w_ms = cuda_ms(call, iters=200)
+            h_us = host_us(call)
             p_ms = cuda_ms(lambda: cuda_nms.nms_reference(*args, IOU_T, 1e-6), iters=5)
-            per_kernel, _ = profile_kernels(lambda: cuda_nms.nms(gpu, IOU_T), iters=20)
-            dev_ms = sum(v for k, v in per_kernel.items() if "nms_kernel" in k)
             keep = cuda_nms.nms(cpu, IOU_T).valid
-            # One selection step per kept box, each an argmax and an IoU
-            # against K candidates (~12 float32 operations per candidate).
+            # The selection rule's work: one step per kept box, each an argmax
+            # and an IoU against K candidates (~12 float32 operations each).
             ops = int(keep.sum()) * K * 12
             in_bytes = n * K * (16 + 4 + 4 + 1) + n * K
-            timings[(n, K)] = (k_ms, p_ms, *bound(in_bytes, ops, FP32_FLOPS_S))
-            log(f"[3] time n={n} K={K}: kernel wrapper {k_ms:.4f} ms/call, plain twin "
-                f"on the card {p_ms:.3f} ms/call (CUDA events); kernel device time per "
-                f"launch {profiled(dev_ms)} (torch.profiler)")
+            b_ms, b_by = bound(in_bytes, ops, FP32_FLOPS_S)
+            timings[(n, K)] = dict(ms=dev_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                   wrapper_ms=w_ms, host_us=h_us, floor_ms=floor_ms)
+            log(f"[3] {card}: NMS n={n} K={K}: kernel {dev_ms:.4f} ms device (CUDA graph), "
+                f"an empty launch of the same grid {floor_ms:.4f} ms; wrapper {w_ms:.4f} "
+                f"ms/call back to back (CUDA events), host {h_us:.1f} us/call to issue; "
+                f"bound {b_ms:.7f} ms by {b_by}; plain twin on the card {p_ms:.3f} ms/call")
     if mismatches:
         raise AssertionError(f"kernel and plain twin disagree on {mismatches} candidates")
     log(f"[3] {n_cases} cases: kernel == plain twin on every keep mask")
@@ -549,7 +614,13 @@ def phase_entry_point(engine, thr: float) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_timing(engine, thr: float, card: str) -> None:
+def nms_share(tag: str, nms_ms: float, batch_ms: float) -> None:
+    """The NMS kernel's share at batch 1, from its CUDA-graph device time."""
+    log(f"{tag}   NMS at batch 1: {nms_ms:.4f} ms device (phase 3, CUDA graph, K = 98), "
+        f"{100 * nms_ms / batch_ms:.2f}% of the batch's {batch_ms:.3f} ms (CUDA events)")
+
+
+def phase_timing(engine, thr: float, card: str, nms_ms: float) -> None:
     import torch
 
     r = np.random.default_rng(5)
@@ -561,6 +632,8 @@ def phase_timing(engine, thr: float, card: str) -> None:
         log(f"[6] {card}: fp32 slice (uint8 on the card -> forward -> decode -> NMS "
             f"kernel), batch {batch}: {ms:.3f} ms/batch, {batch * 1000.0 / ms:.1f} img/s "
             f"(CUDA events, 10 iterations after 3 warm-up)")
+        if batch == 1:
+            nms_share("[6]", nms_ms, ms)
         per_kernel, wall = profile_kernels(run, iters=3)
         busy = sum(per_kernel.values())
         if not busy > 0:
@@ -1172,43 +1245,86 @@ def _conv_call(conv, ops_, mode=None, plain=False):
     return lambda: cuda_int8.conv_int8(x, wq, m, t, conv[4], conv[5], mode, wk=wk, **extra)
 
 
+def stem_images(g, shape, dtype: str):
+    """Seeded (N, H, W, 3) images on the card: uint8 in [0, 256), or float32 N(0, 1.5)."""
+    import torch
+
+    if dtype == "uint8":
+        return torch.randint(0, 256, (*shape, 3), generator=g, device="cuda", dtype=torch.uint8)
+    return torch.randn((*shape, 3), generator=g, device="cuda") * 1.5
+
+
+def stem_times(images, s_img) -> dict:
+    """The stem front's device ms (CUDA graph), wrapper ms (back to back, CUDA
+    events), host us a call, and its byte bound, on ``images``."""
+    from yolo_tpu_torch.serving import cuda_stem
+
+    n, h, w, _ = images.shape
+    call = lambda: cuda_stem.quant_s2d(images, s_img)  # noqa: E731
+    n_bytes = cuda_stem.bytes_moved(n, h, w, images.element_size())
+    b_ms, b_by = bound(n_bytes, 0, FP32_FLOPS_S)
+    return dict(ms=graph_ms(call, iters=10 if n >= 64 else 20), wrapper_ms=cuda_ms(call, iters=20),
+                host_us=host_us(call), bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+
+
+def _stem_equal(got, ref, out: dict, what: str) -> None:
+    bad = int((got != ref).sum())
+    out["stem_err"] = max(out["stem_err"], float((got.int() - ref.int()).abs().max()))
+    if bad:
+        raise AssertionError(f"stem kernel differs from its twin in {bad} values ({what})")
+
+
+def phase_stem_kernel(card: str) -> dict:
+    """Phase 11's first part: the stem front (#6) bit for bit against its twin
+    at batch 1 to 256, both input types, with its times; then ragged widths
+    and a misaligned view (the byte path)."""
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_stem
+
+    dev = torch.device("cuda")
+    out = {"stem": {}, "stem_err": 0.0}
+    g = torch.Generator(device=dev).manual_seed(41)
+    s_img = torch.tensor(0.0173, dtype=torch.float32, device=dev)
+    for batch in (1, SLICE_BATCH, 64, 256):
+        for dtype in ("uint8", "float32"):
+            images = stem_images(g, (batch, SIZE, SIZE), dtype)
+            got = cuda_stem.quant_s2d(images, s_img)
+            ref = cuda_stem.quant_s2d_reference(images, s_img)
+            _stem_equal(got, ref, out, f"batch {batch}, {dtype}")
+            del got, ref
+            t = stem_times(images, s_img)
+            t["plain_ms"] = cuda_ms(lambda: cuda_stem.quant_s2d_reference(images, s_img),
+                                    iters=3 if batch == 256 else 5, warmup=1)
+            out["stem"][(batch, dtype)] = t
+            log(f"[11] {card}: stem front, batch {batch}, {dtype}: == twin bit for bit; "
+                f"kernel {t['ms']:.4f} ms device (CUDA graph; bound {t['bound_ms']:.4f} ms by "
+                f"{t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}%, "
+                f"{t['bytes'] / t['ms'] / 1e6:.0f} GB/s), wrapper {t['wrapper_ms']:.4f} ms/call "
+                f"back to back, host {t['host_us']:.1f} us/call to issue; twin "
+                f"{t['plain_ms']:.4f} ms ({t['bytes'] / 1e6:.1f} MB)")
+            del images
+    for shape in ((3, 18, 10), (2, 6, 14), (1, 448, 446)):
+        for dtype in ("uint8", "float32"):
+            images = stem_images(g, (shape[0], shape[1], shape[2] + 2), dtype)
+            views = {"": images[:, :, :shape[2]].contiguous(),
+                     ", a view 3 pixels into its storage": images.reshape(-1)[9:][
+                         :shape[0] * shape[1] * shape[2] * 3].reshape(*shape, 3)}
+            for what, x in views.items():
+                _stem_equal(cuda_stem.quant_s2d(x, s_img), cuda_stem.quant_s2d_reference(x, s_img),
+                            out, f"{shape}, {dtype}{what}")
+    log("[11] stem front at (3, 18, 10), (2, 6, 14), (1, 448, 446), uint8 and float32, "
+        "contiguous and misaligned: == twin bit for bit")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_int8_kernels(card: str) -> dict:
     import torch
 
-    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+    from yolo_tpu_torch.serving import cuda_int8
 
-    dev = torch.device("cuda")
-    out = {"stem": {}, "conv": {}, "sums": {}, "stem_err": 0.0, "conv_err": 0.0}
-    # --- kernel #6: the stem front, bit for bit at the slice's batches.
-    r = np.random.default_rng(41)
-    s_img = torch.tensor(0.0173, dtype=torch.float32, device=dev)
-    for batch in (1, SLICE_BATCH, 64):
-        for dtype in ("uint8", "float32"):
-            if dtype == "uint8":
-                host = r.integers(0, 256, size=(batch, SIZE, SIZE, 3), dtype=np.uint8)
-            else:
-                host = r.normal(0, 1.5, size=(batch, SIZE, SIZE, 3)).astype(np.float32)
-            images = torch.from_numpy(host).to(dev)
-            got = cuda_stem.quant_s2d(images, s_img)
-            ref = cuda_stem.quant_s2d_reference(images, s_img)
-            bad = int((got != ref).sum())
-            out["stem_err"] = max(out["stem_err"],
-                                  float((got.int() - ref.int()).abs().max()))
-            if bad:
-                raise AssertionError(f"stem kernel differs from its twin in {bad} values "
-                                     f"(batch {batch}, {dtype})")
-            k_ms = cuda_ms(lambda: cuda_stem.quant_s2d(images, s_img), iters=20)
-            p_ms = cuda_ms(lambda: cuda_stem.quant_s2d_reference(images, s_img), iters=5)
-            per_kernel, _ = profile_kernels(lambda: cuda_stem.quant_s2d(images, s_img), iters=10)
-            dev_ms = sum(v for k, v in per_kernel.items() if "quant_s2d_kernel" in k)
-            n_bytes = cuda_stem.bytes_moved(batch, SIZE, SIZE, images.element_size())
-            b_ms, b_by = bound(n_bytes, 0, FP32_FLOPS_S)
-            out["stem"][(batch, dtype)] = (k_ms, p_ms, b_ms, b_by, dev_ms)
-            log(f"[11] stem front, batch {batch}, {dtype}: == twin bit for bit; kernel "
-                f"{profiled(dev_ms)} device, wrapper {k_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB)")
-            del images, got, ref
-
+    out = {**phase_stem_kernel(card), "conv": {}, "sums": {}, "conv_err": 0.0}
     # --- kernel #7: every distinct conv geometry and epilogue at batch 2, the
     # int8 output and the int32 accumulator against the float64 twin.
     convs = _distinct(engine_convs(2)) + [
@@ -1467,7 +1583,7 @@ def phase_int8_slice():
 
 
 # ---------------------------------------------------------------- phase 13
-def phase_int8_timing(engine, model, thr: float, card: str) -> None:
+def phase_int8_timing(engine, model, thr: float, card: str, nms_ms: float) -> None:
     import torch
 
     from yolo_tpu_torch.inference import YOLOInference
@@ -1485,6 +1601,8 @@ def phase_int8_timing(engine, model, thr: float, card: str) -> None:
         log(f"[13] {card}: batch {batch}: " + "; ".join(
             f"{k} {ms:.3f} ms/batch, {v:.1f} img/s" for k, (ms, v) in rates.items())
             + " (CUDA events; uint8 images on the card -> decode -> NMS kernel)")
+        if batch == 1:
+            nms_share("[13]", nms_ms, rates["int8"][0])
         per_kernel, wall = profile_kernels(
             lambda: engine.predict_batch_arrays(images, thr, IOU_T), iters=2)
         busy = sum(per_kernel.values())
@@ -2404,6 +2522,7 @@ def int8_conv_times(root: Path) -> None:
         if not Path(module.__file__).resolve().is_relative_to(root.resolve()):
             raise SystemExit(f"chip_smoke: imported {module.__file__}, not {root}'s package")
     tag = f"[times {root.resolve().name}] {card}"
+    nms_stem_times(root, tag)
     times = {}
     for ci, conv in enumerate(_distinct(engine_convs(SLICE_BATCH))):
         x, wq, m, t, res, rr = _conv_operands(conv, 200 + ci)
@@ -2436,6 +2555,39 @@ def int8_conv_times(root: Path) -> None:
         del qc
         torch.cuda.empty_cache()
     bottleneck_times(root, tag)
+
+
+def nms_stem_times(root: Path, tag: str) -> None:
+    """Device ms (CUDA graphs), wrapper ms (back to back) and host us a call
+    of the NMS kernel at phase 3's timed shapes and of the stem front at
+    batch 1 to 256, uint8 (and float32 at batch 16), on phases 3 and 11's
+    inputs, through the package of the checkout at ``root`` (imported by
+    ``int8_conv_times``)."""
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.ops.decode import Detections
+    from yolo_tpu_torch.serving import cuda_stem
+
+    for module in (cuda_nms, cuda_stem):
+        if not Path(module.__file__).resolve().is_relative_to(root.resolve()):
+            raise SystemExit(f"chip_smoke: imported {module.__file__}, not {root}'s package")
+    for ci, (n, K) in enumerate(NMS_TIMED):
+        gpu = Detections(*(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                           for a in _case(2000 + ci, n, K, "uniform")))
+        call = lambda: cuda_nms.nms(gpu, IOU_T)  # noqa: E731
+        log(f"{tag}: NMS n={n} K={K}: kernel {nms_kernel_ms(cuda_nms, gpu):.4f} ms device, "
+            f"nms() {graph_ms(call, iters=50):.4f} ms device, wrapper "
+            f"{cuda_ms(call, iters=200):.4f} ms, host {host_us(call):.1f} us/call")
+    g = torch.Generator(device="cuda").manual_seed(42)
+    s_img = torch.tensor(0.0173, dtype=torch.float32, device="cuda")
+    for batch, dtype in ((1, "uint8"), (SLICE_BATCH, "uint8"), (64, "uint8"), (256, "uint8"),
+                         (SLICE_BATCH, "float32")):
+        t = stem_times(stem_images(g, (batch, SIZE, SIZE), dtype), s_img)
+        log(f"{tag}: stem front batch {batch} {dtype}: {t['ms']:.4f} ms device "
+            f"({100 * t['bound_ms'] / t['ms']:.1f}% of its {t['bound_ms']:.4f} ms bound), wrapper "
+            f"{t['wrapper_ms']:.4f} ms, host {t['host_us']:.1f} us/call")
+    torch.cuda.empty_cache()
 
 
 def bottleneck_times(root: Path, tag: str) -> None:
@@ -2499,10 +2651,11 @@ def main() -> None:
 
     card = timed(1, phase_environment)
     timed(2, phase_build)
-    kv = timed(3, phase_kernel_vs_plain)
+    kv = timed(3, phase_kernel_vs_plain, card)
+    nms_ms = kv["timings"][(1, 98)]["ms"]
     engine, thr, thr_cli, launches = timed(4, phase_slice)
     timed(5, phase_entry_point, engine, thr_cli)
-    timed(6, phase_timing, engine, thr, card)
+    timed(6, phase_timing, engine, thr, card, nms_ms)
     del engine
     torch.cuda.empty_cache()
     bn = timed(7, phase_fused_bn_kernels)
@@ -2511,7 +2664,7 @@ def main() -> None:
     timed(10, phase_train_timing, card)
     i8k = timed(11, phase_int8_kernels, card)
     engine, model, thr, i8_launches = timed(12, phase_int8_slice)
-    timed(13, phase_int8_timing, engine, model, thr, card)
+    timed(13, phase_int8_timing, engine, model, thr, card, nms_ms)
     del engine
     torch.cuda.empty_cache()
     ck = timed(14, phase_chain_kernels, card)
@@ -2536,7 +2689,8 @@ def main() -> None:
     }
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
 
-    k_ms, p_ms, b_ms, b_by = kv["timings"][(SLICE_BATCH, 98)]
+    # NMS at the slice's shape (16 images, K = 98): device time from a CUDA graph.
+    nt = kv["timings"][(SLICE_BATCH, 98)]
     record = {"kernels": [{
         "name": "nms",
         "route": "cuda",
@@ -2544,10 +2698,10 @@ def main() -> None:
         "replaces": "yolo_tpu/ops/pallas_nms.py:42",
         "launches": launches,
         "max_abs_err": kv["max_abs_err"],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "ms": nt["ms"],
+        "plain_ms": nt["plain_ms"],
+        "bound_ms": nt["bound_ms"],
+        "bound_by": nt["bound_by"],
         "library_ms": None,
     }]}
     replaces = {"stats": 98, "normalize": 155, "bwd_reduce": 222, "bwd_dx": 256}
@@ -2572,8 +2726,9 @@ def main() -> None:
             "library_ms": (bn["timings"][("stem bn1", "f32", "library_stats")]
                            if name == "stats" else None),
         })
-    # The stem front at the slice's batch and wire format (16 uint8 images).
-    k_ms, p_ms, b_ms, b_by, _ = i8k["stem"][(SLICE_BATCH, "uint8")]
+    # The stem front at the slice's batch and wire format (16 uint8 images):
+    # device time from a CUDA graph.
+    st = i8k["stem"][(SLICE_BATCH, "uint8")]
     record["kernels"].append({
         "name": "quant_s2d",
         "route": "cuda",
@@ -2581,10 +2736,10 @@ def main() -> None:
         "replaces": "yolo_tpu/serving/pallas_stem.py:38",
         "launches": i8_launches[0],
         "max_abs_err": i8k["stem_err"],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "ms": st["ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"],
         "library_ms": None,
     })
     # The int8 conv at layer1's 1x1 256 -> 64 (blocks 1-2), batch 16, where

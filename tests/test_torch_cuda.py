@@ -64,6 +64,62 @@ def test_kernel_rejects_too_many_candidates(device):
         cuda_nms.nms(dets)
 
 
+def _nms_on_card_and_cpu(cpu, device, t=0.45, eps=1e-6):
+    got = cuda_nms.nms(Detections(*(x.to(device) for x in cpu)), t, eps=eps).valid
+    torch.cuda.synchronize()
+    return got.cpu(), cuda_nms.nms(cpu, t, eps=eps).valid
+
+
+@pytest.mark.parametrize("eps", [1e-6, 0.0])
+def test_kernel_batch_256_and_all_minus_inf_rows(device, eps):
+    cpu = _random(256, 256, 98, False)
+    scores = cpu.scores.clone()
+    scores[1::7] = float("-inf")  # whole rows of valid candidates at -inf keep nothing
+    cpu = cpu._replace(scores=scores, valid=cpu.valid.clone().fill_(True))
+    got, ref = _nms_on_card_and_cpu(cpu, device, eps=eps)
+    assert torch.equal(got, ref)
+    assert not got[1::7].any() and got.any()
+
+
+@pytest.mark.parametrize("single_box", [True, False])
+def test_kernel_single_class_k1024(device, single_box):
+    # The densest mask: one class, K = 1024 (identical boxes: every pair overlaps).
+    cpu = _random(5, 3, 1024, False)
+    boxes = cpu.boxes.clone()
+    if single_box:
+        boxes[:] = torch.tensor([0.5, 0.5, 0.3, 0.2])
+    cpu = cpu._replace(boxes=boxes, class_ids=torch.zeros_like(cpu.class_ids))
+    got, ref = _nms_on_card_and_cpu(cpu, device)
+    assert torch.equal(got, ref)
+    if single_box:
+        assert got[1:].sum(dim=1).tolist() == [1, 1]
+
+
+def _graph_equals_eager(fn):
+    """Capture ``fn`` in a CUDA graph, replay it, and return (eager, replayed)."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, captured
+
+
+@pytest.mark.parametrize("K", [98, 1024])
+def test_kernel_replays_in_a_cuda_graph(device, K):
+    gpu = Detections(*(t.to(device) for t in _random(K + 1, 16, K, True)))
+    before = cuda_nms.LAUNCHES
+    eager, replayed = _graph_equals_eager(lambda: cuda_nms.nms(gpu, 0.45).valid)
+    assert cuda_nms.LAUNCHES == before + 3  # eager, warm-up, capture; a replay is no call
+    assert torch.equal(eager, replayed)
+
+
 # ------------------------------------------------------------ fused BN
 # Tolerances, in the working dtype (kernel vs plain twin on the same card):
 # sums are taken in another order and nvcc contracts x*mul+add into an FMA,
@@ -211,6 +267,45 @@ def test_quant_s2d_kernel_equals_plain_twin(device, shape, dtype):
     assert torch.equal(got.cpu(), ref)
     # ... and the twin on the card equals the twin on the CPU.
     assert torch.equal(cuda_stem.quant_s2d_reference(cpu.to(device), s_img.to(device)).cpu(), ref)
+
+
+def _stem_images(seed, shape, dtype):
+    r = np.random.default_rng(seed)
+    if dtype == "uint8":
+        return torch.from_numpy(r.integers(0, 256, size=(*shape, 3), dtype=np.uint8))
+    return torch.from_numpy(r.normal(0, 1.5, size=(*shape, 3)).astype(np.float32))
+
+
+# W/2 = 5, 7, 9 and 3 (not a multiple of the 4 pixels a unit), batch 256 at
+# the slice's 448x448, and a view that starts 3 pixels into its storage (no
+# unit aligned for the vector loads).
+@pytest.mark.parametrize("shape", [(2, 6, 10), (3, 4, 14), (1, 8, 18), (5, 2, 6),
+                                   (256, 448, 448), "offset"], ids=str)
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_quant_s2d_kernel_ragged_and_batch_256(device, shape, dtype):
+    from yolo_tpu_torch.serving import cuda_stem
+
+    if shape == "offset":
+        images = _stem_images(3, (2, 18, 24), dtype).to(device).reshape(-1)[9:]
+        images = images[: 2 * 18 * 22 * 3].reshape(2, 18, 22, 3)
+    else:
+        images = _stem_images(sum(shape), shape, dtype).to(device)
+    s_img = torch.tensor(0.0173, dtype=torch.float32, device=device)
+    got = cuda_stem.quant_s2d(images, s_img)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_stem.quant_s2d_reference(images, s_img))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_quant_s2d_kernel_replays_in_a_cuda_graph(device, dtype):
+    from yolo_tpu_torch.serving import cuda_stem
+
+    images = _stem_images(7, (4, 448, 448), dtype).to(device)
+    s_img = torch.tensor(0.0173, dtype=torch.float32, device=device)
+    before = cuda_stem.LAUNCHES
+    eager, replayed = _graph_equals_eager(lambda: cuda_stem.quant_s2d(images, s_img))
+    assert cuda_stem.LAUNCHES == before + 3
+    assert torch.equal(eager, replayed)
 
 
 # (N, H, W, Cin, Cout, K, stride, pad): every geometry class of the engine,

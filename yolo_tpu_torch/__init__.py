@@ -20,13 +20,18 @@ from yolo_tpu_torch.version import __version__
 
 _LAZY = {
     "BoundingBox": "yolo_tpu_torch.schemas",
+    "CombinedVOCDataset": "yolo_tpu_torch.data",
     "Detection": "yolo_tpu_torch.schemas",
     "DetectionHead": "yolo_tpu_torch.models",
     "ResNetBackbone": "yolo_tpu_torch.models",
+    "VOCDetectionYOLO": "yolo_tpu_torch.data",
     "VOC_CLASSES": "yolo_tpu_torch.data",
     "YOLOInference": "yolo_tpu_torch.inference",
+    "YOLOLoss": "yolo_tpu_torch.ops.loss",
     "YOLOv1": "yolo_tpu_torch.models",
     "create_model": "yolo_tpu_torch.models",
+    "create_voc_datasets": "yolo_tpu_torch.data",
+    "yolo_loss": "yolo_tpu_torch.ops.loss",
 }
 
 

@@ -1,32 +1,36 @@
 """Per-class greedy NMS through the hand-written CUDA kernel ``csrc/nms.cu``.
 
-Port of the TPU kernel yolo_tpu/ops/pallas_nms.py::_nms_kernel. The kernel
-selects instead of sorting: K times, or until nothing is active, it keeps
-the active candidate with the highest score (ties to the lowest index) and
-deactivates every active candidate of the same class whose IoU with it is
->= the threshold. The keep mask equals ops/nms.py::batched_nms bit for bit.
+Port of the TPU kernel yolo_tpu/ops/pallas_nms.py::_nms_kernel. The rule:
+K times, or until nothing is active, keep the active candidate with the
+highest score (ties to the lowest index) and deactivate every active
+candidate of the same class whose IoU with it is >= the threshold. The
+kernel computes the same keep mask without that chain: it ranks the
+eligible candidates, builds the pairwise suppression mask in sorted order
+in parallel and leaves one warp a bit scan (the header of ``nms.cu``). The
+keep mask equals ops/nms.py::batched_nms bit for bit.
 
 :func:`nms` launches the kernel for CUDA tensors and runs
-:func:`nms_reference`, the same selection loop in plain torch, for CPU
-tensors. A CUDA tensor never reaches the plain loop: the kernel runs or the
-call raises.
+:func:`nms_reference`, the selection loop in plain torch, for CPU tensors. A
+CUDA tensor never reaches the plain loop: the kernel runs or the call raises.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
 from yolo_tpu_torch.ops.boxes import EPSILON
 from yolo_tpu_torch.ops.decode import Detections
+from yolo_tpu_torch.utils import kernels
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 LAUNCHES = 0
-#: Largest candidate count per image the kernel takes (32 register slots
-#: per lane, csrc/nms.cu).
+#: Largest candidate count per image the kernel takes (two candidates a
+#: thread of 512, csrc/nms.cu).
 MAX_CANDIDATES = 1024
+#: (name, dtype, trailing box axis) of each Detections field the kernel reads.
+_FIELDS = (("boxes", torch.float32, True), ("scores", torch.float32, False),
+           ("class_ids", torch.int32, False), ("valid", torch.bool, False))
 
 
 def nms_reference(
@@ -82,37 +86,32 @@ def nms_reference(
 
 def _launch(boxes, scores, class_ids, valid, iou_threshold, eps) -> torch.Tensor:
     global LAUNCHES
-    from yolo_tpu_torch.utils import kernels
-
+    device = scores.device
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):  # the kernel launches on the current device
+            return _launch(boxes, scores, class_ids, valid, iou_threshold, eps)
     n, K = scores.shape
-    keep = torch.empty((n, K), dtype=torch.bool, device=scores.device)
-    lib = kernels.load()
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yolo_nms(
-            boxes.data_ptr(), scores.data_ptr(), class_ids.data_ptr(),
-            valid.data_ptr(), keep.data_ptr(), n, K,
-            ctypes.c_float(iou_threshold), ctypes.c_float(eps), stream,
-        )
+    keep = torch.empty((n, K), dtype=torch.bool, device=device)
+    code = kernels.load().yolo_nms(
+        boxes.data_ptr(), scores.data_ptr(), class_ids.data_ptr(), valid.data_ptr(),
+        keep.data_ptr(), n, K, iou_threshold, eps,
+        torch._C._cuda_getCurrentRawStream(device.index),
+    )
     kernels.check(code, "yolo_nms launch")
     LAUNCHES += 1
     return keep
 
 
 def _check(dets: Detections, K: int) -> None:
-    want = {
-        "boxes": (torch.float32, (*dets.scores.shape, 4)),
-        "scores": (torch.float32, tuple(dets.scores.shape)),
-        "class_ids": (torch.int32, tuple(dets.scores.shape)),
-        "valid": (torch.bool, tuple(dets.scores.shape)),
-    }
+    shape = dets.scores.shape
     device = dets.scores.device
-    for name, (dtype, shape) in want.items():
+    for name, dtype, box in _FIELDS:
         t = getattr(dets, name)
+        want = (*shape, 4) if box else tuple(shape)
         if t.dtype != dtype:
             raise TypeError(f"nms: {name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"nms: {name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.shape != want:
+            raise ValueError(f"nms: {name} must have shape {want}, got {tuple(t.shape)}")
         if t.device != device:
             raise ValueError(f"nms: {name} is on {t.device}, scores on {device}")
         if not t.is_contiguous():
@@ -136,19 +135,14 @@ def nms(
     """
     K = dets.scores.shape[-1]
     _check(dets, K)
-    batch_shape = dets.scores.shape[:-1]
-    t = float(np.float32(iou_threshold))
-    e = float(np.float32(eps))
     args = (
         dets.boxes.reshape(-1, K, 4),
         dets.scores.reshape(-1, K),
         dets.class_ids.reshape(-1, K),
         dets.valid.reshape(-1, K),
-        t,
-        e,
+        float(np.float32(iou_threshold)),
+        float(np.float32(eps)),
     )
-    if dets.scores.device.type == "cuda":
-        keep = _launch(*args)
-    else:
-        keep = nms_reference(*args)
-    return dets._replace(valid=keep.reshape(*batch_shape, K) & dets.valid)
+    keep = _launch(*args) if dets.scores.device.type == "cuda" else nms_reference(*args)
+    # keep implies valid: only valid candidates are ever kept.
+    return dets._replace(valid=keep.reshape(dets.scores.shape))
