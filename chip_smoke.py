@@ -11,8 +11,9 @@ hand-written fused-BN kernels), int8 serving (fold -> calibrate ->
 quantize -> the quantize+space-to-depth stem kernel and the int8 conv +
 requant kernel for every conv -> decode -> NMS), and int8 serving with the
 stage-chain hooks (each stage's stride-1 bottlenecks through the fused
-chain kernel, or each identity block through the fused bottleneck kernel).
-Phases:
+chain kernel, or each identity block through the fused bottleneck kernel),
+and evaluation (the mAP evaluator, NMS through the kernel on its fast path,
+the evaluate CLI, train --compute-map, the int8 accuracy gate). Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
@@ -29,7 +30,9 @@ Phases:
    class at K = 1024 with a row of one repeated box); at (1, 16, 64, 256) x
    K = 98 and (256, 392) the kernel's device time (CUDA graph) beside an empty
    launch of the same grid, its bound and the twin's time, and the wrapper's
-   time and host time a call;
+   time and host time a call; the float64 instantiation (the precise
+   evaluator's) on the same cases in float64, and its device time at
+   (16, 98) and (64, 98);
 4. slice: YOLOInference.predict_batch_arrays on 16 seeded uint8 images with
    the median decoded score as threshold; the NMS launch count must grow,
    keep masks must equal decode + the plain NMS on CPU copies, and one
@@ -141,6 +144,33 @@ Phases:
    112x112, on plan()'s tile and on every tile forced; then python -m
    yolo_tpu_torch.experiments.fused_block_pallas (kernel, twin, cuDNN's three
    bf16 convs).
+24. evaluator: mAPMetric's fast path (float32 on the card, NMS through the
+   kernel at eps 0) on seeded grids, exact-IoU grids (0.5 / 0.75 / 1, a
+   duplicate, tied scores) and a ragged batch masked, at NMS 0.4 and 1.1:
+   all 77 keys and every per-batch array equal the fast path on the CPU,
+   and the precise path's (float64 on the card, the kernel's float64
+   instantiation) the precise path's on the CPU, one NMS launch a batch on
+   each (counts zeroed just before); the keys on which the two paths differ
+   printed. Then python -m
+   yolo_tpu_torch.evaluate at full width (fc2 set to find the dogs) on a
+   synthetic VOC tree of 10 centred dogs in batches of 4 (the last
+   ragged), fp32 precise and fast, --int8
+   --calib-data 2012:train and --engine <an artifact of that engine>: each
+   run's launches (stem / conv / NMS) counted from 0, its 77 keys and
+   report, the fp32 and --engine keys equal to an in-process
+   evaluate_model's, --engine equal to --int8; then one epoch of python -m
+   yolo_tpu_torch.train --compute-map --map-frequency 1 at --image-size 64,
+   resumed from a model whose fc2 bias detects the tree's centred dogs,
+   must write yolo_best_map.pth;
+25. timing (information only): python -m yolo_tpu_torch.bench_eval at
+   batch 16 and 64 (4 batches), fp32 and int8, fast and precise: img/s,
+   the tail's device and wall ms a batch, compute()'s seconds, the idle
+   share, beside the card's name and power limit;
+26. accuracy gate: python -m yolo_tpu_torch.quant_accuracy --chain at its
+   defaults (1500 bf16 steps on one synthetic batch at 224x224): the
+   trained model, the default int8 engine and the chained engine must
+   PASS (mAP50 > 0.5, each int8 engine within 1 point), with exactly the
+   launches of one forward of each engine and one NMS a metric pass.
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
@@ -475,16 +505,24 @@ def phase_kernel_vs_plain(card: str) -> dict:
         arrays = _case(1000 + ci, n, K, kind)
         cpu = Detections(*(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays))
         gpu = Detections(*(t.to(dev) for t in cpu))
+        cpu64 = cpu._replace(boxes=cpu.boxes.double(), scores=cpu.scores.double())
+        gpu64 = Detections(*(t.to(dev) for t in cpu64))
         for eps in (1e-6, 0.0):
             for t in (0.4, 0.5):
-                got = cuda_nms.nms(gpu, t, eps=eps).valid
-                torch.cuda.synchronize()
-                ref = cuda_nms.nms(cpu, t, eps=eps).valid
-                bad = int((got.cpu() != ref).sum())
-                mismatches += bad
-                n_cases += 1
-                log(f"[3] n={n:3d} K={K:4d} {kind:12} eps={eps:g} t={t}: "
-                    f"kept {int(ref.sum())}/{int(cpu.valid.sum())}, mismatches {bad}")
+                for tag, c, g in (("f32", cpu, gpu), ("f64", cpu64, gpu64)):
+                    got = cuda_nms.nms(g, t, eps=eps).valid
+                    torch.cuda.synchronize()
+                    ref = cuda_nms.nms(c, t, eps=eps).valid
+                    bad = int((got.cpu() != ref).sum())
+                    mismatches += bad
+                    n_cases += 1
+                    log(f"[3] {tag} n={n:3d} K={K:4d} {kind:12} eps={eps:g} t={t}: "
+                        f"kept {int(ref.sum())}/{int(cpu.valid.sum())}, mismatches {bad}")
+        if kind == "uniform" and K == 98 and n in (SLICE_BATCH, 64):
+            args64 = (gpu64.boxes, gpu64.scores, gpu64.class_ids, gpu64.valid)
+            f64_ms = graph_ms(lambda: cuda_nms._launch(*args64, IOU_T, 0.0), iters=50)
+            log(f"[3] {card}: NMS float64 n={n} K={K} eps=0: kernel {f64_ms:.4f} ms device "
+                f"(CUDA graph)")
         if kind == "uniform" and (n, K) in NMS_TIMED:
             args = (gpu.boxes, gpu.scores, gpu.class_ids, gpu.valid)
             call = lambda: cuda_nms.nms(gpu, IOU_T)  # noqa: E731
@@ -993,8 +1031,9 @@ def phase_train_slice() -> dict:
 
 
 # ---------------------------------------------------------------- phase 9
-def _write_voc(root: Path, n: int = 4) -> None:
-    """A synthetic VOCdevkit: 2007 trainval, 2012 train/val, seeded JPEGs."""
+def _write_voc(root: Path, n: int = 4, centered: bool = False) -> None:
+    """A synthetic VOCdevkit: 2007 trainval, 2012 train/val, seeded JPEGs,
+    one 150x120 dog an image (in the middle with ``centered``)."""
     from PIL import Image
 
     r = np.random.default_rng(29)
@@ -1009,6 +1048,8 @@ def _write_voc(root: Path, n: int = 4) -> None:
             Image.fromarray(r.integers(0, 256, size=(375, 500, 3), dtype=np.uint8)).save(
                 voc / "JPEGImages" / f"{img_id}.jpg")
             x0, y0 = int(r.integers(0, 300)), int(r.integers(0, 200))
+            if centered:
+                x0, y0 = (500 - 150) // 2, (375 - 120) // 2
             (voc / "Annotations" / f"{img_id}.xml").write_text(
                 "<annotation><size><width>500</width><height>375</height></size><object>"
                 f"<name>dog</name><bndbox><xmin>{x0}</xmin><ymin>{y0}</ymin>"
@@ -2501,6 +2542,346 @@ def phase_bf16_bottleneck(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 24
+EVAL_IMAGES, EVAL_BATCH = 10, 4  # batches of 4, 4 and a ragged 2
+BOX_W, BOX_H = 150 / 500, 120 / 375  # _write_voc's dog
+
+
+def eval_grids(seed: int, n: int):
+    """Seeded (pred, target) grids for the evaluator's parity checks
+    (tests/test_torch_metrics.py holds the CPU paths against JAX on them):
+    O(1) boxes and peaked classes; ~30% of cells hold a GT of one of 6
+    classes, and ~70% of those a prediction of its class near its box."""
+    D = B * 5 + C
+    r = np.random.default_rng(seed)
+    pred = r.uniform(0, 1, (n, S, S, D)).astype(np.float32)
+    pred[..., [2, 3, 7, 8]] *= 0.6
+    pred[..., 10:] = (r.uniform(0, 1, (n, S, S, C)) ** 6).astype(np.float32)
+    target = np.zeros((n, S, S, D), np.float32)
+    cells = r.uniform(size=(n, S, S)) < 0.3
+    target[..., 0:2] = r.uniform(0, 1, (n, S, S, 2))
+    target[..., 2:4] = r.uniform(0.02, 0.6, (n, S, S, 2))
+    target[..., 4] = 1.0
+    target[..., 10:] = np.eye(C, dtype=np.float32)[r.integers(0, 6, (n, S, S))]
+    target[~cells] = 0.0
+    near = cells & (r.uniform(size=(n, S, S)) < 0.7)
+    pred[near, 0:4] = target[near, 0:4] + r.normal(0, 0.05, (int(near.sum()), 4))
+    pred[near, 10:] = target[near, 10:] * np.float32(0.9)
+    return pred, target
+
+
+def exact_iou_grids():
+    """Exact IoUs: GT [0.5, 0.5, 0.5, 0.5] in cell (3, 3) (centre 3.5 / 7 =
+    0.5 exactly); same-centre predictions of widths 0.25 / 0.375 / 0.5 hit
+    IoU 0.5 / 0.75 / 1 exactly; a duplicate; two tied scores; a small GT."""
+    D = B * 5 + C
+    pred = np.zeros((2, S, S, D), np.float32)
+    target = np.zeros((2, S, S, D), np.float32)
+    target[:, 3, 3, 0:5] = [0.5, 0.5, 0.5, 0.5, 1.0]
+    target[:, 3, 3, 10 + 1] = 1.0
+    pred[0, 3, 3, 0:10] = [0.5, 0.5, 0.25, 0.5, 0.9, 0.5, 0.5, 0.375, 0.5, 0.8]
+    pred[1, 3, 3, 0:10] = [0.5, 0.5, 0.5, 0.5, 0.7, 0.5, 0.5, 0.25, 0.5, 0.7]
+    pred[:, 3, 3, 10 + 1] = 1.0
+    target[1, 1, 1, 0:5] = [0.25, 0.75, 0.125, 0.25, 1.0]
+    target[1, 1, 1, 10 + 1] = 1.0
+    pred[1, 1, 1, 0:5] = [0.25, 0.75, 0.125, 0.25, 0.6]
+    pred[1, 1, 1, 10 + 1] = 1.0
+    return pred, target
+
+
+def eval_batches() -> list:
+    """The parity batches: two seeded, the exact-IoU one, and a ragged batch
+    of 5 zero-padded to 8 with its sample mask."""
+    pred, target = eval_grids(0, 5)
+    pad = np.zeros((3, *pred.shape[1:]), np.float32)
+    padded = (np.concatenate([pred, pad]), np.concatenate([target, pad]), np.arange(8) < 5)
+    return [eval_grids(1, 8), exact_iou_grids(), eval_grids(2, 8), padded]
+
+
+def _metric(batches, precise: bool, nms: float, move):
+    from yolo_tpu_torch.metrics import mAPMetric
+
+    metric = mAPMetric(num_classes=C, precise=precise, nms_threshold=nms)
+    for pred, target, *mask in batches:
+        metric.update(move(pred), move(target), *mask)
+    return metric.compute(), metric
+
+
+def _chunks_differ(a, b) -> int:
+    """Elements on which two metrics' per-batch arrays differ."""
+    return sum(int((x[k] != y[k]).sum()) for x, y in zip(a._chunks, b._chunks) for k in x)
+
+
+def phase_eval_parity() -> int:
+    """Each path on the card against the same path on the CPU, key for key
+    and array for array, with one NMS launch a batch; the two paths'
+    differences printed. Returns the NMS launches of one fast pass over the
+    batches."""
+    import torch
+
+    from yolo_tpu_torch.ops import cuda_nms
+
+    batches = eval_batches()
+    for nms in (IOU_T, 1.1):
+        cuda_nms.LAUNCHES = 0
+        fast, fast_m = _metric(batches, False, nms, lambda a: torch.from_numpy(a).cuda())
+        torch.cuda.synchronize()
+        launches = cuda_nms.LAUNCHES
+        cpu, cpu_m = _metric(batches, False, nms, torch.from_numpy)
+        bad = [k for k in cpu if fast.get(k) != cpu[k]]
+        n_diff = _chunks_differ(fast_m, cpu_m)
+        if len(fast) != 77 or bad or n_diff or fast.keys() != cpu.keys():
+            raise AssertionError(f"fast path, card vs CPU at NMS {nms}: keys {bad}, "
+                                 f"{n_diff} array elements differ")
+        if launches != len(batches):
+            raise AssertionError(f"fast path: {launches} NMS launches for {len(batches)} batches")
+        cuda_nms.LAUNCHES = 0
+        precise, precise_m = _metric(batches, True, nms, lambda a: torch.from_numpy(a).cuda())
+        torch.cuda.synchronize()
+        launches64 = cuda_nms.LAUNCHES
+        cpu64, cpu64_m = _metric(batches, True, nms, torch.from_numpy)
+        bad = [k for k in cpu64 if precise.get(k) != cpu64[k]]
+        n_diff = _chunks_differ(precise_m, cpu64_m)
+        if len(precise) != 77 or bad or n_diff or precise.keys() != cpu64.keys():
+            raise AssertionError(f"precise path, card vs CPU at NMS {nms}: keys {bad}, "
+                                 f"{n_diff} array elements differ")
+        if launches64 != len(batches):
+            raise AssertionError(f"precise path: {launches64} NMS launches for {len(batches)} "
+                                 f"batches")
+        differ = [k for k in precise if precise[k] != fast[k]]
+        log(f"[24] mAPMetric on {len(batches)} batches (seeded, exact IoU 0.5/0.75/1, ragged "
+            f"5 of 8 masked), NMS {nms}: on the card == on the CPU, all 77 keys and every "
+            f"per-batch array, for the fast path (float32) and the precise path (float64); "
+            f"NMS kernel launches {launches} and {launches64} (one a batch); the two paths "
+            f"differ on {len(differ)} of 77 keys {differ[:6]}")
+        for key in ("mAP50:95", "mAP50", "mAP75", "precision", "recall"):
+            log(f"[24]   {key:9s} fast {fast[key]!r:24} precise {precise[key]!r}")
+    return launches
+
+
+def _eval_model():
+    """The seeded full-width model with fc2's weights scaled 5x and its bias
+    a dog box of _write_voc's size at confidence 0.5 in every cell: the
+    forward moves each box by a few hundredths, so on a tree of centred
+    dogs the middle cell's box is a TP and the others FPs."""
+    import torch
+
+    from yolo_tpu_torch.data import VOC_CLASSES
+
+    model = _int8_model()
+    fc2 = model.head.fc_layers[4]
+    with torch.no_grad():
+        fc2.weight.mul_(5.0)
+        grid = fc2.bias.view(S, S, B * 5 + C)
+        grid.zero_()
+        grid[..., 0:10] = torch.tensor([0.5, 0.5, BOX_W, BOX_H, 0.5] * 2)
+        grid[..., B * 5 + VOC_CLASSES.index("dog")] = 1.0
+    return model
+
+
+def _detecting_checkpoint(path: Path, image_size: int) -> None:
+    """A full-depth model whose grid is its fc2 bias (fc2 weights zero): a
+    dog box of _write_voc's size in the middle cell, nothing elsewhere;
+    saved with an Adam at learning rate 0, so training leaves it as it is."""
+    import torch
+
+    from yolo_tpu_torch.data import VOC_CLASSES
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.training.checkpoints import save_checkpoint
+    from yolo_tpu_torch.training.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    model = create_model("resnet", C, S, B, device=dev, image_size=image_size,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    bias = torch.zeros(S, S, B * 5 + C, device=dev)
+    bias[3, 3, 0:10] = torch.tensor([0.5, 0.5, BOX_W, BOX_H, 1.0] * 2)
+    bias[3, 3, B * 5 + VOC_CLASSES.index("dog")] = 1.0
+    fc2 = model.head.fc_layers[4]
+    with torch.no_grad():
+        fc2.weight.zero_()
+        fc2.bias.copy_(bias.reshape(-1))
+    optimizer, schedule = make_optimizer(model, lr=0.0)
+    save_checkpoint(path, 0, model, optimizer, schedule, {"total": 0.0}, {"total": 1e9})
+
+
+def phase_eval_slice() -> dict:
+    """The evaluate CLI at full width (fp32 both paths, --int8 --calib-data,
+    --engine), each against an in-process evaluate_model, then train
+    --compute-map. Returns the launches (stem, conv, NMS) of each CLI run."""
+    import torch
+
+    from yolo_tpu_torch import evaluate, train
+    from yolo_tpu_torch.data import DataLoader, create_voc_datasets
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.inference import YOLOInference
+    from yolo_tpu_torch.metrics import evaluate_model
+    from yolo_tpu_torch.serving.engine import int8_forward, load_artifact
+
+    dev = torch.device("cuda")
+    model = _eval_model().to(memory_format=torch.channels_last)  # as the CLI's
+    n_batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    launches = {}
+    # One set of cuDNN algorithms for the CLI's model and the in-process one.
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+            tmp = Path(tmp)
+            _write_voc(tmp / "voc", n=EVAL_IMAGES, centered=True)
+            ckpt = tmp / "ck" / "yolo_random.pth"
+            ckpt.parent.mkdir()
+            torch.save(model.state_dict(), ckpt)
+
+            def loader(spec):
+                year, split = spec.split(":")
+                ds = create_voc_datasets([(year, split)], root=tmp / "voc", augment=False,
+                                         normalize_host=False)
+                return DataLoader(ds, batch_size=EVAL_BATCH, shuffle=False, num_workers=0,
+                                  drop_last=False)
+
+            calib = [device_normalize(torch.from_numpy(im).to(dev))
+                     for im, _ in list(loader("2012:train"))[:2]]
+            artifact = tmp / "engine.npz"
+            YOLOInference(model, dev, image_size=SIZE, optimize="int8",
+                          calibration=calib).save_engine(artifact, force=True)
+            q, impl = load_artifact(artifact, model, dev)
+
+            base = ["--checkpoint", str(ckpt), "--data-root", str(tmp / "voc"), "--year",
+                    "2007", "--image-set", "trainval", "--batch-size", str(EVAL_BATCH),
+                    "--num-workers", "2", "--device", "cuda"]
+            runs = (("fp32 precise", [], (0, 0, n_batches)),
+                    ("fp32 fast", ["--fast-eval"], (0, 0, n_batches)),
+                    ("int8", ["--int8", "--calib-data", "2012:train", "--fast-eval"],
+                     (n_batches, 58 * n_batches, n_batches)),
+                    ("engine", ["--engine", str(artifact), "--fast-eval"],
+                     (n_batches, 58 * n_batches, n_batches)))
+            results = {}
+            for tag, flags, want in runs:
+                report = ckpt.parent / "evaluation_results.txt"
+                report.unlink(missing_ok=True)
+                _zero_counts()
+                t0 = time.perf_counter()
+                results[tag] = evaluate.main([*base, *flags])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches[tag] = _counts()
+                if launches[tag] != want:
+                    raise AssertionError(f"evaluate {tag}: launches stem/conv/NMS "
+                                         f"{launches[tag]}, want {want}")
+                if len(results[tag]) != 77 or "Overall metrics" not in report.read_text():
+                    raise AssertionError(f"evaluate {tag}: {len(results[tag])} keys, report "
+                                         f"{report.is_file()}")
+                r = results[tag]
+                log(f"[24] python -m yolo_tpu_torch.evaluate {' '.join(flags)}: "
+                    f"{EVAL_IMAGES} images in batches of {EVAL_BATCH} at {SIZE}x{SIZE}, "
+                    f"{secs:.1f} s (build and data included); launches stem/conv/NMS "
+                    f"{launches[tag]}; mAP50 {r['mAP50']!r}, mAP50:95 {r['mAP50:95']!r}, "
+                    f"precision {r['precision']!r}, recall {r['recall']!r}; 77 keys, report "
+                    f"written")
+            in_process = {
+                "fp32 precise": evaluate_model(model, loader("2007:trainval"), verbose=False),
+                "fp32 fast": evaluate_model(model, loader("2007:trainval"), verbose=False,
+                                            precise=False),
+                "engine": evaluate_model(
+                    model, loader("2007:trainval"), verbose=False, precise=False,
+                    forward_fn=lambda x: int8_forward(q, x, S=S, impl=impl)),
+            }
+            for tag, ref in in_process.items():
+                bad = [k for k in ref if results[tag][k] != ref[k]]
+                if bad:
+                    raise AssertionError(f"evaluate {tag} vs evaluate_model: keys {bad}")
+            if results["engine"] != results["int8"]:
+                raise AssertionError("evaluate --engine differs from --int8 on its calibration")
+            if not all(r["recall"] > 0 for r in results.values()):
+                raise AssertionError("the evaluated model found none of the tree's dogs")
+            log("[24] the CLI's keys == in-process evaluate_model's (fp32 both paths, "
+                "--engine); --engine == --int8 (same calibration batches)")
+
+            _write_voc(tmp / "voc64", n=4, centered=True)
+            start = tmp / "start.pth"
+            _detecting_checkpoint(start, 64)
+            ck64 = tmp / "ck64"
+            _zero_counts()
+            out = train.main(["--data-root", str(tmp / "voc64"), "--device", "cuda",
+                              "--batch-size", "2", "--image-size", "64", "--num-workers", "2",
+                              "--worker-type", "thread", "--checkpoint-dir", str(ck64),
+                              "--log-dir", str(tmp / "runs"), "--epochs", "1", "--resume",
+                              str(start), "--compute-map", "--map-frequency", "1"])
+            written = sorted(p.name for p in ck64.iterdir())
+            if "yolo_best_map.pth" not in written or not out.get("best_mAP50:95", 0) > 0:
+                raise AssertionError(f"train --compute-map wrote {written}, returned {out}")
+            log(f"[24] python -m yolo_tpu_torch.train --compute-map --map-frequency 1 "
+                f"--image-size 64 (resumed from a model that detects the tree's centred "
+                f"dogs): wrote {written}, best mAP50:95 {out['best_mAP50:95']!r}")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 25
+EVAL_TIMING_BATCHES = 4
+
+
+def phase_eval_timing(card: str) -> dict:
+    import torch
+
+    from yolo_tpu_torch import bench_eval
+
+    out = {}
+    for batch in (SLICE_BATCH, 64):
+        for int8 in (False, True):
+            for precise in (False, True):
+                r = bench_eval.run(batch, EVAL_TIMING_BATCHES, SIZE, precise=precise, int8=int8)
+                out[(batch, int8, precise)] = r
+                torch.cuda.empty_cache()
+        for int8 in (False, True):
+            fast, prec = out[(batch, int8, False)], out[(batch, int8, True)]
+            log(f"[25] {card}: eval {'int8' if int8 else 'fp32'}, batch {batch}: fast "
+                f"{fast['img_s']:.1f} img/s, precise {prec['img_s']:.1f} img/s "
+                f"({fast['img_s'] / prec['img_s']:.2f}x); tail a batch fast "
+                f"{fast['tail_ms']:.3f} ms wall / {fast['tail_device_ms']} ms device, precise "
+                f"{prec['tail_ms']:.3f} ms wall / {prec['tail_device_ms']} ms device; compute() "
+                f"{fast['compute_s']:.4f} / "
+                f"{prec['compute_s']:.4f} s; idle fast {fast['idle']} precise {prec['idle']}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 26
+def _chained(name: str) -> bool:
+    """Whether quant_accuracy --chain's engine runs conv ``name`` (an
+    engine_convs name) inside a chain: all of layer1, and the stride-1
+    blocks of layers 2-3."""
+    return name.startswith("layer1.") or (name.startswith(("layer2.", "layer3."))
+                                          and ".0." not in name)
+
+
+def phase_accuracy_gate() -> tuple:
+    """python -m yolo_tpu_torch.quant_accuracy --chain at its defaults: the
+    trained model, the default int8 engine and the chained engine must PASS,
+    with the launches of two engine runs and three metric passes exactly."""
+    from yolo_tpu_torch import quant_accuracy
+
+    convs = [c[0] for c in engine_convs(1)]
+    per_conv = sum(not _chained(name) for name in convs)
+    # stem / int8 conv / chain / block / NMS: the default engine and the
+    # chained one, one forward each; one NMS launch a metric pass (3).
+    want = (2, len(convs) + per_conv, 3, 0, 3)
+    _zero_chain_counts()
+    rc = quant_accuracy.main(["--chain"])
+    counts = _chain_counts()
+    if rc != 0:
+        raise AssertionError("quant_accuracy --chain: FAIL")
+    if counts != want:
+        raise AssertionError(f"quant_accuracy launches stem/conv/chain/block/NMS {counts}, "
+                             f"want {want}")
+    log(f"[26] python -m yolo_tpu_torch.quant_accuracy --chain: PASS; launches stem "
+        f"{counts[0]}, int8 conv {counts[1]}, chain {counts[2]}, block {counts[3]}, NMS "
+        f"{counts[4]} (== {want})")
+    return counts
+
+
 def int8_conv_times(root: Path) -> None:
     """Device and wrapper ms of the int8 conv at every distinct geometry of
     the engine at batch 16, and their sums over all 58 convs; device ms of
@@ -2687,6 +3068,11 @@ def main() -> None:
         "bf16_bottleneck": ("bf16_bottleneck.cu", "experiments/fused_block_pallas.py:31",
                             timed(23, phase_bf16_bottleneck, card)),
     }
+    eval_nms, eval_launches = timed(24, lambda: (phase_eval_parity(), phase_eval_slice()))
+    timed(25, phase_eval_timing, card)
+    timed(26, phase_accuracy_gate)
+    log(f"[24] evaluator path launches: NMS {eval_nms} for {len(eval_batches())} metric "
+        f"batches; CLI runs (stem, int8 conv, NMS): {eval_launches}")
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
 
     # NMS at the slice's shape (16 images, K = 98): device time from a CUDA graph.

@@ -58,6 +58,40 @@ def test_kernel_equals_plain_twin(device, K, ties, eps):
     assert torch.equal(got.cpu(), ref)
 
 
+def _float64(cpu):
+    return cpu._replace(boxes=cpu.boxes.double(), scores=cpu.scores.double())
+
+
+@pytest.mark.parametrize("K", [1, 98, 392, 1024])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("eps", [1e-6, 0.0])
+def test_float64_kernel_equals_plain_twin(device, K, ties, eps):
+    """The precise evaluator's instantiation: float64 boxes and scores, the
+    threshold and eps as float64 (0.4 is not float32's 0.4)."""
+    cpu = _float64(_random(K + 1, 37, K, ties))
+    ref = cuda_nms.nms(cpu, 0.4, eps=eps).valid
+    before = cuda_nms.LAUNCHES
+    got = cuda_nms.nms(Detections(*(t.to(device) for t in cpu)), 0.4, eps=eps).valid
+    torch.cuda.synchronize()
+    assert cuda_nms.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_float64_kernel_single_class_k1024_and_threshold(device):
+    """The float64 kernel's largest shared memory (one class, K = 1024), and
+    a pair at IoU 0.4000000000000001: suppressed at 0.4 in float64."""
+    cpu = _float64(_random(6, 3, 1024, False))
+    cpu = cpu._replace(class_ids=torch.zeros_like(cpu.class_ids))
+    got, ref = _nms_on_card_and_cpu(cpu, device, t=0.4, eps=0.0)
+    assert torch.equal(got, ref)
+    pair = Detections(torch.tensor([[[0.5, 0.5, 1.0, 1.0], [0.5, 0.2, 1.0, 0.4]]],
+                                   dtype=torch.float64),
+                      torch.tensor([[0.9, 0.8]], dtype=torch.float64),
+                      torch.ones((1, 2), dtype=torch.int32), torch.ones((1, 2), dtype=torch.bool))
+    got, ref = _nms_on_card_and_cpu(pair, device, t=0.4, eps=0.0)
+    assert got.tolist() == ref.tolist() == [[True, False]]
+
+
 def test_kernel_rejects_too_many_candidates(device):
     dets = Detections(*(t.to(device) for t in _random(0, 2, 1025, False)))
     with pytest.raises(ValueError):
@@ -829,3 +863,71 @@ def test_experiment_kernels_reject_what_they_do_not_take(device):
     args = fb.random_block(1, 8, 8, 24, 16, device)
     with pytest.raises(ValueError, match="multiples of 16"):
         fb.fused_bottleneck(*args)
+
+
+# ---------------------------------------------------------------- the evaluator
+def _metric_on(batches, device, precise, nms=0.4):
+    from yolo_tpu_torch.metrics import mAPMetric
+
+    metric = mAPMetric(num_classes=20, precise=precise, nms_threshold=nms)
+    for pred, target, *mask in batches:
+        metric.update(torch.from_numpy(pred).to(device), torch.from_numpy(target).to(device),
+                      *mask)
+    return metric.compute(), metric
+
+
+@pytest.mark.parametrize("nms", [0.4, 1.1])
+def test_fast_metric_on_card_equals_cpu(device, nms):
+    """All 77 keys and every per-batch array of the fast path on CUDA tensors
+    equal the fast path on CPU tensors; one NMS launch a batch."""
+    from chip_smoke import eval_batches
+
+    batches = eval_batches()
+    before = cuda_nms.LAUNCHES
+    got, got_m = _metric_on(batches, device, False, nms)
+    assert cuda_nms.LAUNCHES == before + len(batches)
+    ref, ref_m = _metric_on(batches, "cpu", False, nms)
+    assert len(got) == 77 and got == ref
+    for a, b in zip(got_m._chunks, ref_m._chunks):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("nms", [0.4, 1.1])
+def test_precise_metric_on_card_equals_cpu(device, nms):
+    """The precise path in float64 on the card (the NMS kernel's float64
+    instantiation, one launch a batch) equals the precise path on the CPU,
+    all 77 keys and every per-batch array."""
+    from chip_smoke import eval_batches
+
+    batches = eval_batches()
+    before = cuda_nms.LAUNCHES
+    got, got_m = _metric_on(batches, device, True, nms)
+    assert cuda_nms.LAUNCHES == before + len(batches)
+    ref, ref_m = _metric_on(batches, "cpu", True, nms)
+    assert len(got) == 77 and got == ref
+    for a, b in zip(got_m._chunks, ref_m._chunks):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_eval_decode_and_matching_on_card_equal_cpu(device):
+    """With ``s_divisor`` on the card the decode divides truly, as on the
+    CPU; the matcher's flags are equal on both devices."""
+    from chip_smoke import eval_grids
+    from yolo_tpu_torch.ops.decode import decode_ground_truth, decode_predictions
+    from yolo_tpu_torch.ops.matching import match_detections_masked
+
+    pred, target = (torch.from_numpy(a) for a in eval_grids(5, 16))
+    out = {}
+    for dev in ("cpu", device):
+        div = torch.tensor(7.0, device=dev)
+        dets = decode_predictions(pred.to(dev), 7, 2, 20, 0.01, s_divisor=div)
+        gts = decode_ground_truth(target.to(dev), 7, 2, 20, s_divisor=div)
+        masks = torch.stack([gts.valid, gts.valid & (gts.boxes[..., 2] < 0.3)])
+        thr = torch.tensor([0.5 + 0.05 * i for i in range(10)], device=dev)
+        out[str(dev)] = (*dets, *gts, *match_detections_masked(
+            dets.boxes, dets.scores, dets.class_ids, dets.valid, gts.boxes, gts.class_ids,
+            masks, thr))
+    for a, b in zip(out["cpu"], out[str(device)]):
+        assert torch.equal(a, b.cpu())

@@ -50,6 +50,9 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch.experiments.mosaic_int8_dot\n"
         "import yolo_tpu_torch.experiments.conv_bn_fuse_bench\n"
         "import yolo_tpu_torch.experiments.fused_block_pallas\n"
+        "import yolo_tpu_torch.ops.matching, yolo_tpu_torch.metrics, yolo_tpu_torch.evaluate\n"
+        "import yolo_tpu_torch.overfit_check, yolo_tpu_torch.quant_accuracy\n"
+        "import yolo_tpu_torch.bench_eval\n"
         "assert 'triton' not in sys.modules\n"
         "assert yolo_tpu_torch.YOLOInference is yolo_tpu_torch.inference.YOLOInference\n"
         "print('OK')\n"
@@ -68,8 +71,8 @@ def test_package_import_is_lazy():
 
 
 # Names of the JAX root's __all__ that the port has not ported yet: the
-# 24-conv backbone (with its Backbone alias) and the evaluator.
-NOT_YET_PORTED = {"Backbone", "YOLOv1Backbone", "evaluate_model", "mAPMetric"}
+# 24-conv backbone (with its Backbone alias).
+NOT_YET_PORTED = {"Backbone", "YOLOv1Backbone"}
 
 
 def _jax_root_all() -> list:
@@ -96,6 +99,7 @@ def test_root_exports_every_ported_jax_root_name():
         "unresolved = [n for n in names if getattr(yolo_tpu_torch, n, None) is None]\n"
         f"early = sorted(set(yolo_tpu_torch.__all__) & set({sorted(NOT_YET_PORTED)!r}))\n"
         "assert YOLOLoss is yolo_tpu_torch.ops.loss.YOLOLoss\n"
+        "assert yolo_tpu_torch.mAPMetric is yolo_tpu_torch.metrics.map.mAPMetric\n"
         "assert create_voc_datasets is yolo_tpu_torch.data.voc.create_voc_datasets\n"
         "print(missing, unresolved, early, 'jax' in sys.modules, 'yolo_tpu' in sys.modules)\n"
     )

@@ -9,6 +9,7 @@ mode. Decode must give the same class ids and valid masks exactly, and boxes
 and scores within rtol 1e-6: torch divides by S where XLA multiplies by 1/S.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,6 +130,37 @@ def test_nms_keep_masks_equal_jax(case, t, eps):
         np.testing.assert_array_equal(pal, ref, err_msg="pallas vs JAX batched_nms")
 
 
+def _iou_just_above_0_4():
+    # IoU 0.4000000000000001 in float64: >= 0.4, but < float32(0.4).
+    boxes, scores, class_ids, valid = _explicit(
+        [[0.5, 0.5, 1.0, 1.0], [0.5, 0.2, 1.0, 0.4]], [0.9, 0.8], [1, 1])
+    return boxes.astype(np.float64), scores.astype(np.float64), class_ids, valid
+
+
+CASES_F64 = {**CASES, "iou_just_above_0_4": _iou_just_above_0_4}
+
+
+@pytest.mark.parametrize("eps", [1e-6, 0.0])
+@pytest.mark.parametrize("t", [0.4, 0.5])
+@pytest.mark.parametrize("case", sorted(CASES_F64))
+def test_nms_float64_keep_masks_equal_jax_x64(case, t, eps):
+    """The precise evaluator's NMS: the port on float64 tensors (threshold
+    and eps kept as float64) against JAX's batched_nms under x64."""
+    arrays = [np.asarray(a, np.float64) if np.asarray(a).dtype.kind == "f" else a
+              for a in CASES_F64[case]()]
+    with jax.enable_x64(True):
+        jd = JDetections(*(jnp.asarray(a) for a in arrays))
+        ref = np.asarray(j_batched_nms(jd, t, eps=eps).valid)
+    boxes, scores, class_ids, valid = (torch.from_numpy(np.array(a)) for a in arrays)
+    dets = Detections(boxes, scores, class_ids, valid)
+    np.testing.assert_array_equal(batched_nms(dets, t, eps=eps).valid.numpy(), ref)
+    np.testing.assert_array_equal(cuda_nms.nms(dets, t, eps=eps).valid.numpy(), ref)
+    if case == "iou_just_above_0_4":
+        # The threshold is not rounded to float32: at eps 0 the second box
+        # goes at 0.4.
+        assert ref[0].tolist() == [True, not (t == 0.4 and eps == 0.0)]
+
+
 def test_nms_cases_do_real_work():
     """The cases suppress something and keep something, so equality means a lot."""
     kept = total = 0
@@ -151,6 +183,8 @@ def test_nms_wrapper_checks_inputs():
         cuda_nms.nms(good._replace(scores=scores.double()))
     with pytest.raises(TypeError):
         cuda_nms.nms(good._replace(class_ids=class_ids.long()))
+    with pytest.raises(TypeError):
+        cuda_nms.nms(good._replace(boxes=boxes.half(), scores=scores.half()))
     with pytest.raises(ValueError):
         cuda_nms.nms(good._replace(boxes=boxes[:, :-1]))
     with pytest.raises(ValueError):

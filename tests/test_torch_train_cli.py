@@ -2,8 +2,9 @@
 
 One epoch at 64x64, batch 2, writes ``yolo_latest.pth`` and ``yolo_best.pth``
 with the reference's keys; ``--resume true --epochs 2`` starts at epoch 2
-with the optimizer step carried over; the flags that are not ported yet exit
-with a message before anything is built.
+with the optimizer step carried over; ``--compute-map`` adds the mAP keys to
+the validation pass and keeps ``yolo_best_map.pth``; the flags that are not
+ported yet exit with a message before anything is built.
 """
 
 import shutil
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from test_torch_data import make_voc_tree
+from test_torch_evaluate_cli import centered_voc_tree, detecting_model
 from yolo_tpu_torch import train
 
 
@@ -51,8 +53,37 @@ def test_train_one_epoch_then_resume(run_dir, capsys):
     assert set(out) >= {"best_val_loss", "final_train_loss"}
 
 
+def test_compute_map_writes_best_map_checkpoint(run_dir, capsys):
+    """One epoch with ``--compute-map --map-frequency 1`` at 64x64, resumed
+    from a full-depth model that detects the tree's centred dogs (fc2
+    weights zero, its bias a dog box in the middle cell; Adam at lr 0, so
+    the steps leave the weights as they are): the validation pass prints
+    the mAP keys, and mAP50:95 > 0 writes ``yolo_best_map.pth``."""
+    from yolo_tpu_torch.training.checkpoints import save_checkpoint
+    from yolo_tpu_torch.training.optim import make_optimizer
+
+    centered_voc_tree(run_dir / "voc", n_images=4)
+    model = detecting_model(stage_sizes=(3, 4, 6, 3), image_size=64)
+    optimizer, schedule = make_optimizer(model, lr=0.0)
+    start = run_dir / "start.pth"
+    save_checkpoint(start, 0, model, optimizer, schedule, {"total": 0.0}, {"total": 1e9})
+    del model, optimizer, schedule
+    out = train.main(_args(run_dir, "--epochs", "1", "--resume", str(start), "--compute-map",
+                           "--map-frequency", "1"))
+    printed = capsys.readouterr().out
+    assert "Computing mAP metrics" in printed and "mAP@0.5:0.95" in printed
+    ck = run_dir / "ck"
+    assert sorted(p.name for p in ck.iterdir()) == ["yolo_best.pth", "yolo_best_map.pth",
+                                                    "yolo_latest.pth"]
+    best = torch.load(ck / "yolo_best_map.pth", map_location="cpu", weights_only=True)
+    assert best["epoch"] == 1 and best["mAP50:95"] > 0 and best["mAP50"] == pytest.approx(
+        1 / 20, abs=1e-6)
+    assert out["best_mAP50:95"] == best["mAP50:95"]
+    start.unlink()
+
+
 @pytest.mark.parametrize("flags", [
-    ["--backbone", "yolov1"], ["--compute-map"], ["--remat"], ["--remat", "stage"],
+    ["--backbone", "yolov1"], ["--remat"], ["--remat", "stage"],
     ["--mesh-data", "2"], ["--mesh-model", "2"], ["--remote"], ["--orbax-checkpoints"],
     ["--resume", "orbax"], ["--download-data"],
 ])

@@ -308,5 +308,15 @@ def test_validate_pads_and_masks_a_ragged_final_batch(variables):
     for k in LOSS_KEYS:
         want = (float(first[k]) + float(last[k])) / 2
         assert got[k] == pytest.approx(want, rel=1e-5), k
-    with pytest.raises(NotImplementedError):
-        trainer.validate(loader, compute_map=True)
+    # compute_map adds the evaluator's keys (the precise path at confidence
+    # 0.01 and NMS 0.4, the ragged batch masked) to the same losses.
+    from yolo_tpu_torch.metrics import evaluate_model
+
+    with_map = trainer.validate(loader, compute_map=True)
+    assert {k: with_map[k] for k in LOSS_KEYS} == got
+    ref = evaluate_model(model, loader, conf_threshold=0.01, nms_threshold=0.4,
+                         verbose=False, device="cpu")
+    keys = ("mAP50:95", "mAP50", "mAP75", "precision", "recall", "mAP50:95_small",
+            "mAP50:95_medium", "mAP50:95_large")
+    assert set(with_map) == set(LOSS_KEYS) | set(keys)
+    assert {k: with_map[k] for k in keys} == {k: ref[k] for k in keys}

@@ -7,8 +7,9 @@ hand-written CUDA kernel ``csrc/nms.cu``), its training (``training``,
 ``data``, the fused-BN kernels ``csrc/fused_bn.cu``) and its int8 serving
 engine (``serving``, the kernels ``csrc/quant_s2d.cu``,
 ``csrc/int8_conv.cu``, the opt-in ``csrc/int8_bottleneck.cu`` and
-``csrc/int8_wino.cu``), driven by ``inference.YOLOInference`` and the
-``predict`` and ``train`` CLIs.
+``csrc/int8_wino.cu``) and its mAP evaluator (``metrics``), driven by
+``inference.YOLOInference`` and the ``predict``, ``train`` and ``evaluate``
+CLIs.
 
 Importing the package loads nothing else: the names below resolve on first
 use, so PIL, pydantic and the kernel build stay out until needed.
@@ -31,6 +32,8 @@ _LAZY = {
     "YOLOv1": "yolo_tpu_torch.models",
     "create_model": "yolo_tpu_torch.models",
     "create_voc_datasets": "yolo_tpu_torch.data",
+    "evaluate_model": "yolo_tpu_torch.metrics",
+    "mAPMetric": "yolo_tpu_torch.metrics",
     "yolo_loss": "yolo_tpu_torch.ops.loss",
 }
 

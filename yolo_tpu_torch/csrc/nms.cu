@@ -30,7 +30,7 @@
 //      sorted candidate b > a (same class segment) has IoU(a, b) >= t, by
 //      __ballot_sync over 32 lanes. Only the words of a's class segment are
 //      computed; the rest of the row is zeroed. The IoU is pallas_nms.py:
-//      90-93's, with __f*_rn so nvcc cannot contract it into an FMA;
+//      90-93's, with __f*_rn (__d*_rn) so nvcc cannot contract it into an FMA;
 //   4. scan: one warp; lane l holds removed-set word l in a register. For
 //      each block of 32 sorted positions it takes the block's word, walks the
 //      32 bits against the diagonal mask words (a test and an OR each), and
@@ -49,13 +49,20 @@
 //
 // Bit-exactness with the JAX kernel:
 //   * corners, area and IoU use the JAX kernel's op order, written with
-//     __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn; IoU(a, b) takes the later
+//     the _rn intrinsics (add_rn and its kin below); IoU(a, b) takes the later
 //     candidate b where the JAX kernel takes the candidate and the kept a
 //     where it takes best, so even the operand order is the same;
-//   * the threshold and eps arrive already rounded to float32, as the JAX
-//     weak-typed compare uses them;
+//   * the threshold and eps arrive already rounded to the element type, as
+//     the JAX weak-typed compare uses them;
 //   * eps == 0 selects the evaluator's IoU: inter / union with union == 0 -> 0
 //     (yolo_tpu/ops/boxes.py:62-64).
+//
+// The kernel is a template on the element type. float is the serving path's
+// and the fast evaluator's; double is the precise evaluator's, which JAX runs
+// in float64 (yolo_tpu/metrics/map.py:149-157): the same steps with
+// __d*_rn, a 128-bit sort key (class, then the double's ordered bits), the
+// threshold and eps as doubles, and twice the shared memory for the boxes
+// (189 KB at K = 1024).
 
 #include <cuda_runtime.h>
 
@@ -68,41 +75,96 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCandidates = 1024;
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kIneligible = ~0ull;
+
+// The double instantiation's sort key: (class, ordered score bits) as two
+// words, compared high word first.
+struct Key128 {
+  unsigned long long hi, lo;
+};
+__device__ __forceinline__ bool operator<(const Key128& a, const Key128& b) {
+  return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
+}
+__device__ __forceinline__ bool operator==(const Key128& a, const Key128& b) {
+  return a.hi == b.hi && a.lo == b.lo;
+}
+__device__ __forceinline__ bool operator!=(const Key128& a, const Key128& b) {
+  return !(a == b);
+}
+
+// Per element type: the key, the key no eligible candidate has, and the
+// key itself, class ascending, then score descending. An eligible key is
+// never the ineligible one: that would need the all-ones bit pattern (float)
+// or a class above 32 bits (double).
+template <typename T>
+struct Traits;
+
+template <>
+struct Traits<float> {
+  using Key = unsigned long long;
+  static __device__ __forceinline__ Key ineligible() { return ~0ull; }
+  static __device__ __forceinline__ Key sort_key(float score, int32_t cls) {
+    const uint32_t bits = score == 0.f ? 0u : __float_as_uint(score);  // -0.0 ties 0.0
+    const uint32_t ordered = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+    return (static_cast<unsigned long long>(static_cast<uint32_t>(cls) ^ 0x80000000u) << 32) |
+           static_cast<uint32_t>(~ordered);
+  }
+};
+
+template <>
+struct Traits<double> {
+  using Key = Key128;
+  static __device__ __forceinline__ Key ineligible() { return {~0ull, ~0ull}; }
+  static __device__ __forceinline__ Key sort_key(double score, int32_t cls) {
+    const unsigned long long bits =
+        score == 0.0 ? 0ull : static_cast<unsigned long long>(__double_as_longlong(score));
+    const unsigned long long sign = 1ull << 63;
+    const unsigned long long ordered = (bits & sign) ? ~bits : (bits | sign);
+    return {static_cast<uint32_t>(cls) ^ 0x80000000u, ~ordered};
+  }
+};
+
+// Round-to-nearest arithmetic that nvcc cannot contract into an FMA.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
 
 // Bytes of dynamic shared memory for K candidates: sort keys, the sorted
-// boxes (x1, y1, x2, y2, area, class), the segment-end words, the removed
-// words and the mask (K rows of ceil(K/32) words at most).
+// boxes (x1, y1, x2, y2, area), their classes, the segment-end words, the
+// removed words and the mask (K rows of ceil(K/32) words at most).
+template <typename T>
 size_t smem_bytes(int K) {
+  using Key = typename Traits<T>::Key;
   const size_t k = static_cast<size_t>(K), w = (k + 31) / 32;
-  return k * 8 + k * 4 * 6 + w * 4 + 32 * 4 + k * w * 4;
+  return k * sizeof(Key) + k * sizeof(T) * 5 + k * 4 + w * 4 + 32 * 4 + k * w * 4;
 }
 
-// Class ascending, then score descending. Never kIneligible for a score that
-// is not NaN (that would need the all-ones bit pattern).
-__device__ __forceinline__ unsigned long long sort_key(float score, int32_t cls) {
-  const uint32_t bits = score == 0.f ? 0u : __float_as_uint(score);  // -0.0 ties 0.0
-  const uint32_t ordered = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
-  return (static_cast<unsigned long long>(static_cast<uint32_t>(cls) ^ 0x80000000u) << 32) |
-         static_cast<uint32_t>(~ordered);
-}
-
-template <int SLOTS>
+template <typename T, int SLOTS>
 __global__ void __launch_bounds__(kThreads)
-nms_kernel(const float* __restrict__ boxes,     // (n, K, 4) cx, cy, w, h
-           const float* __restrict__ scores,    // (n, K)
+nms_kernel(const T* __restrict__ boxes,         // (n, K, 4) cx, cy, w, h
+           const T* __restrict__ scores,        // (n, K)
            const int32_t* __restrict__ cls,     // (n, K)
            const uint8_t* __restrict__ valid,   // (n, K) 0/1
            uint8_t* __restrict__ keep,          // (n, K) 0/1
-           int K, float iou_threshold, float eps) {
+           int K, T iou_threshold, T eps) {
+  using Key = typename Traits<T>::Key;
+  const Key kIneligible = Traits<T>::ineligible();
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = (K + 31) >> 5;
-  auto* key = reinterpret_cast<unsigned long long*>(smem);
-  float* sx1 = reinterpret_cast<float*>(key + K);
-  float* sy1 = sx1 + K;
-  float* sx2 = sy1 + K;
-  float* sy2 = sx2 + K;
-  float* sarea = sy2 + K;
+  auto* key = reinterpret_cast<Key*>(smem);
+  T* sx1 = reinterpret_cast<T*>(key + K);
+  T* sy1 = sx1 + K;
+  T* sx2 = sy1 + K;
+  T* sy2 = sx2 + K;
+  T* sarea = sy2 + K;
   auto* scls = reinterpret_cast<int32_t*>(sarea + K);
   auto* ends = reinterpret_cast<uint32_t*>(scls + K);  // bit r: r ends its class
   uint32_t* removed_words = ends + W;                   // the scan's result
@@ -119,30 +181,30 @@ nms_kernel(const float* __restrict__ boxes,     // (n, K, 4) cx, cy, w, h
   const int per_pass = kThreads >> gshift;
 
   // 1. Load, corners, area, keys.
-  float x1[SLOTS], y1[SLOTS], x2[SLOTS], y2[SLOTS], area[SLOTS];
+  T x1[SLOTS], y1[SLOTS], x2[SLOTS], y2[SLOTS], area[SLOTS];
   int32_t cl[SLOTS];
-  unsigned long long ky[SLOTS];
+  Key ky[SLOTS];
   int M = 0;
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
     const int i = j * per_pass + (tid >> gshift);
     ky[j] = kIneligible;
-    x1[j] = y1[j] = x2[j] = y2[j] = area[j] = 0.f;
+    x1[j] = y1[j] = x2[j] = y2[j] = area[j] = T(0);
     cl[j] = 0;
     if (part == 0 && i < K) {
-      const float* b = boxes + (base + i) * 4;
-      const float cx = b[0], cy = b[1], w = b[2], h = b[3];
-      const float hw = __fmul_rn(w, 0.5f), hh = __fmul_rn(h, 0.5f);
-      x1[j] = __fsub_rn(cx, hw);
-      y1[j] = __fsub_rn(cy, hh);
-      x2[j] = __fadd_rn(cx, hw);
-      y2[j] = __fadd_rn(cy, hh);
-      area[j] = __fmul_rn(w, h);  // center-format w*h, unclamped (parity)
+      const T* b = boxes + (base + i) * 4;
+      const T cx = b[0], cy = b[1], w = b[2], h = b[3];
+      const T hw = mul_rn(w, T(0.5)), hh = mul_rn(h, T(0.5));
+      x1[j] = sub_rn(cx, hw);
+      y1[j] = sub_rn(cy, hh);
+      x2[j] = add_rn(cx, hw);
+      y2[j] = add_rn(cy, hh);
+      area[j] = mul_rn(w, h);  // center-format w*h, unclamped (parity)
       cl[j] = cls[base + i];
-      const float s = scores[base + i];
+      const T s = scores[base + i];
       // pallas_nms.py:74: a step whose best score is -inf keeps nothing more,
       // so a -inf (or NaN) candidate is never kept and never suppresses.
-      if (valid[base + i] && s > -INFINITY) ky[j] = sort_key(s, cl[j]);
+      if (valid[base + i] && s > -T(INFINITY)) ky[j] = Traits<T>::sort_key(s, cl[j]);
       key[i] = ky[j];
     }
   }
@@ -152,7 +214,7 @@ nms_kernel(const float* __restrict__ boxes,     // (n, K, 4) cx, cy, w, h
   // 2. Rank (each member its share of the keys, summed over the group), then
   // each eligible box to its place in sorted order.
   int rank[SLOTS];
-  unsigned long long mine[SLOTS];
+  Key mine[SLOTS];
 #pragma unroll
   for (int j = 0; j < SLOTS; ++j) {
     const int i = j * per_pass + (tid >> gshift);
@@ -161,7 +223,7 @@ nms_kernel(const float* __restrict__ boxes,     // (n, K, 4) cx, cy, w, h
   }
 #pragma unroll 4
   for (int o = part; o < K; o += 1 << gshift) {
-    const unsigned long long ko = key[o];
+    const Key ko = key[o];
 #pragma unroll
     for (int j = 0; j < SLOTS; ++j) {
       rank[j] += (ko < mine[j]) | ((ko == mine[j]) & (o < j * per_pass + (tid >> gshift)));
@@ -201,21 +263,21 @@ nms_kernel(const float* __restrict__ boxes,     // (n, K, 4) cx, cy, w, h
     uint32_t e = ends[w] & (kFull << (a & 31));
     while (e == 0) e = ends[++w];  // position M - 1 ends a segment
     const int last = (w << 5) + __ffs(e) - 1;
-    const float ax1 = sx1[a], ay1 = sy1[a], ax2 = sx2[a], ay2 = sy2[a], aarea = sarea[a];
+    const T ax1 = sx1[a], ay1 = sy1[a], ax2 = sx2[a], ay2 = sy2[a], aarea = sarea[a];
     uint32_t* row = mask + a * Wm;
     for (int wd = a >> 5; wd <= (last >> 5); ++wd) {
       const int b = (wd << 5) + lane;
       bool hit = false;
       if (b > a && b <= last) {
-        const float iw = fmaxf(0.f, __fsub_rn(fminf(sx2[b], ax2), fmaxf(sx1[b], ax1)));
-        const float ih = fmaxf(0.f, __fsub_rn(fminf(sy2[b], ay2), fmaxf(sy1[b], ay1)));
-        const float inter = __fmul_rn(iw, ih);
-        const float uni = __fsub_rn(__fadd_rn(sarea[b], aarea), inter);
-        float iou;
-        if (eps == 0.f) {
-          iou = uni == 0.f ? 0.f : __fdiv_rn(inter, uni);
+        const T iw = max_(T(0), sub_rn(min_(sx2[b], ax2), max_(sx1[b], ax1)));
+        const T ih = max_(T(0), sub_rn(min_(sy2[b], ay2), max_(sy1[b], ay1)));
+        const T inter = mul_rn(iw, ih);
+        const T uni = sub_rn(add_rn(sarea[b], aarea), inter);
+        T iou;
+        if (eps == T(0)) {
+          iou = uni == T(0) ? T(0) : div_rn(inter, uni);
         } else {
-          iou = __fdiv_rn(inter, __fadd_rn(uni, eps));
+          iou = div_rn(inter, add_rn(uni, eps));
         }
         hit = iou >= iou_threshold;
       }
@@ -275,11 +337,11 @@ nms_kernel(const float* __restrict__ boxes,     // (n, K, 4) cx, cy, w, h
 // grid costs, for reading the NMS kernel's time against (chip_smoke.py).
 __global__ void empty_kernel() {}
 
-template <int SLOTS>
-cudaError_t launch(const float* boxes, const float* scores, const int32_t* cls,
+template <typename T, int SLOTS>
+cudaError_t launch(const T* boxes, const T* scores, const int32_t* cls,
                    const uint8_t* valid, uint8_t* keep, int n, int K,
-                   float iou_threshold, float eps, cudaStream_t stream) {
-  const size_t smem = smem_bytes(K);
+                   T iou_threshold, T eps, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(K);
   if (smem > 48 * 1024) {
     // Allowed once per device, for the largest K this instantiation takes.
     static bool allowed[kMaxDevices] = {};
@@ -287,15 +349,31 @@ cudaError_t launch(const float* boxes, const float* scores, const int32_t* cls,
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
     if (device >= kMaxDevices || !allowed[device]) {
-      err = cudaFuncSetAttribute(nms_kernel<SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem_bytes(SLOTS * kThreads)));
+      err = cudaFuncSetAttribute(nms_kernel<T, SLOTS>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem_bytes<T>(SLOTS * kThreads)));
       if (err != cudaSuccess) return err;
       if (device < kMaxDevices) allowed[device] = true;
     }
   }
-  nms_kernel<SLOTS><<<n, kThreads, smem, stream>>>(boxes, scores, cls, valid, keep, K,
-                                                   iou_threshold, eps);
+  nms_kernel<T, SLOTS><<<n, kThreads, smem, stream>>>(boxes, scores, cls, valid, keep, K,
+                                                      iou_threshold, eps);
   return cudaGetLastError();
+}
+
+template <typename T>
+int nms_entry(const void* boxes, const void* scores, const void* cls, const void* valid,
+              void* keep, int n, int K, T iou_threshold, T eps, void* stream) {
+  if (n < 0 || K < 0 || K > kMaxCandidates) return cudaErrorInvalidValue;
+  if (n == 0 || K == 0) return cudaSuccess;
+  const auto* bx = static_cast<const T*>(boxes);
+  const auto* sc = static_cast<const T*>(scores);
+  const auto* cl = static_cast<const int32_t*>(cls);
+  const auto* va = static_cast<const uint8_t*>(valid);
+  auto* kp = static_cast<uint8_t*>(keep);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (K <= kThreads) return launch<T, 1>(bx, sc, cl, va, kp, n, K, iou_threshold, eps, st);
+  return launch<T, 2>(bx, sc, cl, va, kp, n, K, iou_threshold, eps, st);
 }
 
 }  // namespace
@@ -308,16 +386,15 @@ extern "C" {
 int yolo_nms(const void* boxes, const void* scores, const void* cls,
              const void* valid, void* keep, int n, int K,
              float iou_threshold, float eps, void* stream) {
-  if (n < 0 || K < 0 || K > kMaxCandidates) return cudaErrorInvalidValue;
-  if (n == 0 || K == 0) return cudaSuccess;
-  const auto* bx = static_cast<const float*>(boxes);
-  const auto* sc = static_cast<const float*>(scores);
-  const auto* cl = static_cast<const int32_t*>(cls);
-  const auto* va = static_cast<const uint8_t*>(valid);
-  auto* kp = static_cast<uint8_t*>(keep);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (K <= kThreads) return launch<1>(bx, sc, cl, va, kp, n, K, iou_threshold, eps, st);
-  return launch<2>(bx, sc, cl, va, kp, n, K, iou_threshold, eps, st);
+  return nms_entry<float>(boxes, scores, cls, valid, keep, n, K, iou_threshold, eps, stream);
+}
+
+// yolo_nms for float64 boxes and scores (the precise evaluator's), with the
+// threshold and eps as doubles.
+int yolo_nms_f64(const void* boxes, const void* scores, const void* cls,
+                 const void* valid, void* keep, int n, int K,
+                 double iou_threshold, double eps, void* stream) {
+  return nms_entry<double>(boxes, scores, cls, valid, keep, n, K, iou_threshold, eps, stream);
 }
 
 // Launches `blocks` empty blocks of `threads` threads on `stream`.

@@ -143,24 +143,12 @@ class YOLOInference:
         return lazy_predict
 
     def _load_int8_artifact(self, path):
-        """Serve a saved engine: no fold and no calibration. A Winograd
-        engine's convs get their hooks back (never a silent direct conv)."""
-        from yolo_tpu_torch.serving.engine import default_impl, make_int8_engine_fn, to_device
-        from yolo_tpu_torch.serving.export import load_engine
-        from yolo_tpu_torch.serving.winograd import wino_impl_hooks, wino_points_of
+        """Serve a saved engine: no fold and no calibration (engine.load_artifact)."""
+        from yolo_tpu_torch.serving.engine import load_artifact, make_int8_engine_fn
 
-        q, meta = load_engine(path)
-        for attr in ("S", "B", "num_classes"):
-            if getattr(self.model, attr) != meta[attr]:
-                raise ValueError(
-                    f"engine artifact {path} was exported for {attr}={meta[attr]} but the"
-                    f" model has {getattr(self.model, attr)}")
-        q = to_device(q, self.device)
-        impl = default_impl()
-        wino = wino_points_of(q)
-        if wino:
-            impl = wino_impl_hooks(wino, impl)
-        fn = make_int8_engine_fn(meta["S"], meta["B"], meta["num_classes"], impl=impl)
+        q, impl = load_artifact(path, self.model, self.device)
+        m = self.model
+        fn = make_int8_engine_fn(m.S, m.B, m.num_classes, impl=impl)
         self._int8_state.update(fn=fn, q=q)
         return lambda images, conf, nms_t: fn(q, images, conf, nms_t)
 

@@ -20,6 +20,15 @@ def center_to_corners(boxes: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - half_w, cy - half_h, cx + half_w, cy + half_h], dim=-1)
 
 
+def corners_to_center(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) corners (x1, y1, x2, y2) -> (..., 4) center-format (cx, cy, w, h).
+
+    JAX's ops/boxes.py has it; nothing in the port calls it yet.
+    """
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1], dim=-1)
+
+
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of center-format boxes: w * h."""
     return boxes[..., 2] * boxes[..., 3]

@@ -12,6 +12,8 @@ keep mask equals ops/nms.py::batched_nms bit for bit.
 :func:`nms` launches the kernel for CUDA tensors and runs
 :func:`nms_reference`, the selection loop in plain torch, for CPU tensors. A
 CUDA tensor never reaches the plain loop: the kernel runs or the call raises.
+Boxes and scores are float32 (serving, the fast evaluator) or float64 (the
+precise evaluator); the kernel has an instantiation for each.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ LAUNCHES = 0
 #: Largest candidate count per image the kernel takes (two candidates a
 #: thread of 512, csrc/nms.cu).
 MAX_CANDIDATES = 1024
-#: (name, dtype, trailing box axis) of each Detections field the kernel reads.
-_FIELDS = (("boxes", torch.float32, True), ("scores", torch.float32, False),
+#: (name, dtype, trailing box axis) of each Detections field the kernel reads;
+#: a dtype of None is the scores' own, float32 or float64.
+_FIELDS = (("boxes", None, True), ("scores", None, False),
            ("class_ids", torch.int32, False), ("valid", torch.bool, False))
+_FLOATS = (torch.float32, torch.float64)
 
 
 def nms_reference(
@@ -92,7 +96,9 @@ def _launch(boxes, scores, class_ids, valid, iou_threshold, eps) -> torch.Tensor
             return _launch(boxes, scores, class_ids, valid, iou_threshold, eps)
     n, K = scores.shape
     keep = torch.empty((n, K), dtype=torch.bool, device=device)
-    code = kernels.load().yolo_nms(
+    lib = kernels.load()
+    entry = lib.yolo_nms_f64 if scores.dtype == torch.float64 else lib.yolo_nms
+    code = entry(
         boxes.data_ptr(), scores.data_ptr(), class_ids.data_ptr(), valid.data_ptr(),
         keep.data_ptr(), n, K, iou_threshold, eps,
         torch._C._cuda_getCurrentRawStream(device.index),
@@ -105,9 +111,12 @@ def _launch(boxes, scores, class_ids, valid, iou_threshold, eps) -> torch.Tensor
 def _check(dets: Detections, K: int) -> None:
     shape = dets.scores.shape
     device = dets.scores.device
+    if dets.scores.dtype not in _FLOATS:
+        raise TypeError(f"nms: scores must be float32 or float64, got {dets.scores.dtype}")
     for name, dtype, box in _FIELDS:
         t = getattr(dets, name)
         want = (*shape, 4) if box else tuple(shape)
+        dtype = dtype or dets.scores.dtype
         if t.dtype != dtype:
             raise TypeError(f"nms: {name} must be {dtype}, got {t.dtype}")
         if t.shape != want:
@@ -127,21 +136,22 @@ def nms(
 ) -> Detections:
     """Per-class greedy NMS over the last axis; ``valid`` narrowed to the keep mask.
 
-    Takes ``boxes`` f32 (..., K, 4) in center format, ``scores`` f32 (..., K),
-    ``class_ids`` i32 (..., K) and ``valid`` bool (..., K), all contiguous and
-    on one device. ``iou_threshold`` and ``eps`` are rounded to float32, as
-    the JAX compare rounds them. On CUDA the kernel runs; on the CPU,
-    :func:`nms_reference`.
+    Takes ``boxes`` (..., K, 4) in center format and ``scores`` (..., K),
+    both float32 or both float64, ``class_ids`` i32 (..., K) and ``valid``
+    bool (..., K), all contiguous and on one device. ``iou_threshold`` and
+    ``eps`` are rounded to the scores' dtype, as the JAX compare rounds them.
+    On CUDA the kernel runs; on the CPU, :func:`nms_reference`.
     """
     K = dets.scores.shape[-1]
     _check(dets, K)
+    rnd = np.float32 if dets.scores.dtype == torch.float32 else np.float64
     args = (
         dets.boxes.reshape(-1, K, 4),
         dets.scores.reshape(-1, K),
         dets.class_ids.reshape(-1, K),
         dets.valid.reshape(-1, K),
-        float(np.float32(iou_threshold)),
-        float(np.float32(eps)),
+        float(rnd(iou_threshold)),
+        float(rnd(eps)),
     )
     keep = _launch(*args) if dets.scores.device.type == "cuda" else nms_reference(*args)
     # keep implies valid: only valid candidates are ever kept.

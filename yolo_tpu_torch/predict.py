@@ -58,7 +58,7 @@ def load_engine(args):
     from yolo_tpu_torch.convert import resnet_layout
     from yolo_tpu_torch.inference import YOLOInference
     from yolo_tpu_torch.models import create_model
-    from yolo_tpu_torch.training.checkpoints import load_state_dict
+    from yolo_tpu_torch.training.checkpoints import load_model
 
     if args.backbone != "resnet":
         raise SystemExit(f"backbone {args.backbone!r} is not yet ported")
@@ -67,7 +67,7 @@ def load_engine(args):
         raise SystemExit(f"--device {args.device}: CUDA is not available")
     if not Path(args.checkpoint).exists():
         raise SystemExit(f"Checkpoint not found: {args.checkpoint}")
-    state_dict = load_state_dict(args.checkpoint)
+    state_dict = load_model(args.checkpoint)[0]
     stage_sizes, image_size = resnet_layout(state_dict)
     model = create_model(
         args.backbone, num_classes=args.num_classes, device=device,

@@ -220,6 +220,30 @@ def to_device(q: Dict, device) -> Dict:
     return walk(q)
 
 
+def load_artifact(path, model, device) -> tuple:
+    """A saved engine (.npz) for ``model``'s geometry: (q on ``device``, impl).
+
+    No fold and no calibration. Raises ValueError when the artifact's S, B
+    or class count differs from the model's. A Winograd engine's convs get
+    their hooks back (never a silent direct conv).
+    """
+    from yolo_tpu_torch.serving.export import load_engine
+    from yolo_tpu_torch.serving.winograd import wino_impl_hooks, wino_points_of
+
+    q, meta = load_engine(path)
+    for attr in ("S", "B", "num_classes"):
+        if getattr(model, attr) != meta[attr]:
+            raise ValueError(
+                f"engine artifact {path} was exported for {attr}={meta[attr]} but the"
+                f" model has {getattr(model, attr)}")
+    q = to_device(q, device)
+    impl = default_impl()
+    wino = wino_points_of(q)
+    if wino:
+        impl = wino_impl_hooks(wino, impl)
+    return q, impl
+
+
 def make_int8_engine_fn(S: int, B: int, num_classes: int, impl: Optional[Dict] = None,
                         nms_fn=None, conv: Callable = kernel_conv):
     """(q, images, conf, nms) -> Detections serving function.

@@ -8,8 +8,12 @@ as ``.pth``. ``--device`` defaults to ``cuda`` and fails without a card;
 ``--use-amp`` means bf16 autocast. ``--resume`` takes the port's ``.pth``
 or a JAX ``.ckpt`` (weights, BN statistics, Adam moments and step).
 
+``--compute-map`` adds the mAP suite to the validation pass every
+``--map-frequency`` epochs (and the last) and keeps ``yolo_best_map.pth``
+by mAP50:95.
+
 Not ported yet, and refused with a message: ``--backbone yolov1``,
-``--compute-map``, ``--remat`` other than ``none``, ``--mesh-data`` or
+``--remat`` other than ``none``, ``--mesh-data`` or
 ``--mesh-model`` above 1, ``--remote``, ``--orbax-checkpoints`` and
 ``--resume orbax``; ``--download-data`` needs a network.
 """
@@ -48,7 +52,8 @@ def parse_args(argv=None):
                    help="accepted no-op; logging is on by default")
     p.add_argument("--no-tensorboard", action="store_true",
                    help="disable the TensorBoard/JSONL metric writer")
-    p.add_argument("--compute-map", action="store_true", help="not yet ported")
+    p.add_argument("--compute-map", action="store_true",
+                   help="compute the mAP suite during validation")
     p.add_argument("--map-frequency", type=int, default=5)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--download-data", action="store_true", help="needs a network; refused")
@@ -72,7 +77,6 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     unported = [
         (args.backbone != "resnet", f"--backbone {args.backbone}"),
-        (args.compute_map, "--compute-map (the mAP evaluator)"),
         (args.remat != "none", f"--remat {args.remat}"),
         ((args.mesh_data or 1) > 1 or args.mesh_model > 1, "--mesh-data/--mesh-model above 1"),
         (args.remote, "--remote"),

@@ -24,7 +24,7 @@ from __future__ import annotations
 import os
 import pickle
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -63,21 +63,30 @@ def load_checkpoint(path: str | Path) -> Dict[str, Any]:
         return _CheckpointUnpickler(f).load()
 
 
-def load_variables(path: str | Path) -> Dict[str, Any]:
-    """Just the JAX model variables ``{'params', 'batch_stats'}`` of a ``.ckpt``."""
-    msd = load_checkpoint(path)["model_state_dict"]
+def _variables(payload: Dict[str, Any]) -> Dict[str, Any]:
+    msd = payload["model_state_dict"]
     return {"params": msd["params"], "batch_stats": msd.get("batch_stats", {})}
 
 
-def load_state_dict(path: str | Path) -> Dict[str, torch.Tensor]:
-    """The port's state dict from a ``.pth`` (reference names) or a JAX ``.ckpt``."""
+def load_variables(path: str | Path) -> Dict[str, Any]:
+    """Just the JAX model variables ``{'params', 'batch_stats'}`` of a ``.ckpt``."""
+    return _variables(load_checkpoint(path))
+
+
+def load_model(path: str | Path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """(the port's state dict, the payload's epoch / val_loss / mAP keys) from
+    a ``.pth`` (reference names) or a JAX ``.ckpt``, read once."""
     path = Path(path)
     if path.suffix == ".pth":
-        raw = torch.load(str(path), map_location="cpu", weights_only=True)
-        return raw.get("model_state_dict", raw)
-    from yolo_tpu_torch.convert import state_dict_from_jax
+        payload = torch.load(str(path), map_location="cpu", weights_only=True)
+        state_dict = payload.get("model_state_dict", payload)
+    else:
+        from yolo_tpu_torch.convert import state_dict_from_jax
 
-    return state_dict_from_jax(load_variables(path))
+        payload = load_checkpoint(path)
+        state_dict = state_dict_from_jax(_variables(payload))
+    meta = {k: payload[k] for k in ("epoch", "val_loss", *_MAP_KEYS) if k in payload}
+    return state_dict, meta
 
 
 # ------------------------------------------------------------------ saving
@@ -211,9 +220,7 @@ def resume(path: str | Path, model, optimizer, schedule) -> Dict[str, Any]:
         from yolo_tpu_torch.convert import state_dict_from_jax
 
         payload = load_checkpoint(path)
-        msd = payload["model_state_dict"]
-        model.load_state_dict(state_dict_from_jax(
-            {"params": msd["params"], "batch_stats": msd.get("batch_stats", {})}))
+        model.load_state_dict(state_dict_from_jax(_variables(payload)))
         if payload.get("optimizer_state_dict") is not None:
             optimizer.state.clear()
             optimizer.state.update(adam_state_from_jax(payload["optimizer_state_dict"], model))

@@ -7,8 +7,9 @@ uint8 NHWC images -> ``device_normalize`` on the device -> NCHW
 BN statistics update in the forward (train mode). The loss parts stay on
 the device; the epoch loop syncs with the host only at ``log_interval`` and
 at the end of the epoch (the reference syncs five scalars every batch).
-Mesh/data-parallel arguments belong to the parallelism slice; the mAP
-evaluator is not ported yet.
+``validate(compute_map=True)`` adds the evaluator's keys
+(metrics/map.py). Mesh/data-parallel arguments belong to the parallelism
+slice.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from yolo_tpu_torch.data.loader import pad_batch
 from yolo_tpu_torch.data.transforms import device_normalize
+from yolo_tpu_torch.metrics.map import evaluate_model
 from yolo_tpu_torch.ops.loss import yolo_loss
 from yolo_tpu_torch.training.checkpoints import (
     save_best_map_model,
@@ -132,13 +134,14 @@ class Trainer:
 
     def validate(self, dataloader, compute_map: bool = False,
                  num_classes: Optional[int] = None) -> Dict[str, float]:
-        """Validation loss pass; every image counts once.
+        """Validation loss pass, and with ``compute_map`` the mAP suite.
 
-        A ragged final batch is zero-padded to the loader's batch size and
-        masked out of the loss with ``sample_mask`` (trainer.py:240-276).
+        Every image counts once: a ragged final batch is zero-padded to the
+        loader's batch size and masked out with ``sample_mask``
+        (trainer.py:240-297). The mAP pass is ``evaluate_model``'s precise
+        path at confidence 0.01 and NMS 0.4, under bf16 autocast with
+        ``use_amp``.
         """
-        if compute_map:
-            raise NotImplementedError("the mAP evaluator is not yet ported")
         totals = {k: torch.zeros((), device=self.device) for k in LOSS_KEYS}
         num_batches = 0
         full_batch = getattr(dataloader, "batch_size", None)
@@ -152,7 +155,20 @@ class Trainer:
             for k in LOSS_KEYS:
                 totals[k] += parts[k]
             num_batches += 1
-        return _to_host(totals, num_batches)
+        results = _to_host(totals, num_batches)
+
+        if compute_map:
+            print("\n  Computing mAP metrics...")
+            m = self.model
+            map_results = evaluate_model(
+                m, dataloader, num_classes=num_classes or m.num_classes, conf_threshold=0.01,
+                nms_threshold=0.4, S=m.S, B=m.B, device=self.device, use_amp=self.use_amp)
+            for key in ("mAP50:95", "mAP50", "mAP75", "precision", "recall"):
+                results[key] = map_results[key]
+            for key in ("mAP50:95_small", "mAP50:95_medium", "mAP50:95_large"):
+                if key in map_results:
+                    results[key] = map_results[key]
+        return results
 
 
 def train(

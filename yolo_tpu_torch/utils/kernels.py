@@ -112,6 +112,8 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.yolo_nms.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, cf, vp]
+        cd = ctypes.c_double
+        lib.yolo_nms_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, cd, cd, vp]
         lib.yolo_empty.argtypes = [ci, ci, vp]
         lib.yolo_bn_stats.argtypes = [vp, vp, vp, cll, ci, ci, ci, vp]
         lib.yolo_bn_normalize.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
@@ -128,8 +130,8 @@ def load() -> ctypes.CDLL:
         lib.yolo_adam_update.argtypes = [vp, vp, vp, vp, vp, cll, vp]
         lib.yolo_bf16_conv3x3.argtypes = [vp, vp, vp, vp, vp, *([ci] * 6), vp]
         lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 7), vp]
-        for fn in (lib.yolo_nms, lib.yolo_empty, lib.yolo_bn_stats, lib.yolo_bn_normalize,
-                   lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx, lib.yolo_quant_s2d,
+        for fn in (lib.yolo_nms, lib.yolo_nms_f64, lib.yolo_empty, lib.yolo_bn_stats,
+                   lib.yolo_bn_normalize, lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx, lib.yolo_quant_s2d,
                    lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
                    lib.yolo_int8_wino_taps, lib.yolo_int8_wino_gemm, lib.yolo_adam_update,
                    lib.yolo_bf16_conv3x3, lib.yolo_bf16_bottleneck):
