@@ -12,8 +12,10 @@ quantize -> the quantize+space-to-depth stem kernel and the int8 conv +
 requant kernel for every conv -> decode -> NMS), and int8 serving with the
 stage-chain hooks (each stage's stride-1 bottlenecks through the fused
 chain kernel, or each identity block through the fused bottleneck kernel),
-and evaluation (the mAP evaluator, NMS through the kernel on its fast path,
-the evaluate CLI, train --compute-map, the int8 accuracy gate). Phases:
+evaluation (the mAP evaluator, NMS through the kernel on its fast path,
+the evaluate CLI, train --compute-map, the int8 accuracy gate), and serving
+(every engine replayed from captured CUDA graphs, the HTTP server, the
+batcher and the serve CLI). Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
@@ -170,7 +172,33 @@ the evaluate CLI, train --compute-map, the int8 accuracy gate). Phases:
    defaults (1500 bf16 steps on one synthetic batch at 224x224): the
    trained model, the default int8 engine and the chained engine must
    PASS (mAP50 > 0.5, each int8 engine within 1 point), with exactly the
-   launches of one forward of each engine and one NMS a metric pass.
+   launches of one forward of each engine and one NMS a metric pass;
+27. CUDA graphs (serving/graphs.py): the default int8 engine, the chained
+   engine (one cooperative chain launch a stage, captured), the engine with
+   all 16 Winograd convs and the exact fp32 path, each replayed from one
+   captured graph a batch at batch 1, 16 and 64 on seeded uint8 images,
+   against its eager call on two image sets: bit for bit (exactly for
+   fp32), the second replay giving its own images' result; replays move no
+   launch counter; ms a batch of the graph and of the eager call (CUDA
+   events), the eager call's host issue time and the memory each capture
+   keeps reserved;
+28. the server: YOLOServer on 127.0.0.1:0 over the graph-wrapped default
+   int8 engine, buckets (1, 4, 16), 2 ms, the launch counts zeroed just
+   before its buckets are captured and read after, exactly 3 buckets x 3
+   runs x (1, 58, 1) (replays leave them unchanged; torch.profiler counts
+   5 replays' kernels, at most 5 x (1, 58, 1)); 256 requests of seeded
+   448x448 PNGs from 1, 4, 16 and 64 concurrent clients, each answer equal
+   to detections_to_json of a direct batch-1 call (same classes and order
+   up to score ties, box and score within rtol 1e-4, atol 1e-6);
+   requests/s, p50 and p99 latency, batches, images a batch, bucket fill
+   and the device's idle share (busy = the device time torch.profiler
+   traced over the window, at most its wall time, with at most the
+   window's batches x (1, 58, 1) kernels); the same for the batcher alone (submit of
+   the decoded uint8 arrays); groups that fill a bucket exactly, each
+   result equal to the direct call on that bucket bit for bit; then python
+   -m yolo_tpu_torch.serve --engine <the engine's artifact> --port 0 as a
+   subprocess: its printed port, /healthz, one /predict equal to the
+   in-process answer, stopped by SIGINT.
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
@@ -2744,7 +2772,7 @@ def phase_eval_slice() -> dict:
             artifact = tmp / "engine.npz"
             YOLOInference(model, dev, image_size=SIZE, optimize="int8",
                           calibration=calib).save_engine(artifact, force=True)
-            q, impl = load_artifact(artifact, model, dev)
+            q, impl, _ = load_artifact(artifact, model, dev)
 
             base = ["--checkpoint", str(ckpt), "--data-root", str(tmp / "voc"), "--year",
                     "2007", "--image-set", "trainval", "--batch-size", str(EVAL_BATCH),
@@ -2880,6 +2908,494 @@ def phase_accuracy_gate() -> tuple:
         f"{counts[0]}, int8 conv {counts[1]}, chain {counts[2]}, block {counts[3]}, NMS "
         f"{counts[4]} (== {want})")
     return counts
+
+
+# ---------------------------------------------------------------- phase 27
+GRAPH_BATCHES = (1, SLICE_BATCH, 64)
+SERVE_BUCKETS = (1, 4, 16)
+SERVE_CLIENTS = (1, 4, 16, 64)
+SERVE_REQUESTS = 256  # at each client count
+SERVE_IMAGES = 32  # distinct seeded 448x448 PNGs the requests cycle through
+# A served result against a direct batch-1 call (the bucket it rode in may
+# sum the FC tail in another order): JAX's tolerance, tests/test_serving.py.
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-6
+
+
+def _uint8_batch(seed: int, n: int):
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, size=(n, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
+
+
+def _serving_engines():
+    """The four engines phase 27 captures, at full width on the phase-12
+    model's seeded weights: name -> (eager(images, conf, nms), graphs(conf,
+    nms)). The default and chained engines share the q-params."""
+    import torch
+
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.inference import YOLOInference
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
+                                               make_int8_engine_fn)
+    from yolo_tpu_torch.serving.graphs import GraphedPredict
+    from yolo_tpu_torch.serving.winograd import valid_points
+
+    dev = torch.device("cuda")
+    model = _int8_model()
+    r = np.random.default_rng(43)
+    calib = [device_normalize(torch.from_numpy(
+        r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)) for _ in range(2)]
+    fn, q = build_int8_predict(model, calib, impl=default_impl())
+    wfn, wq = build_int8_predict(model, calib, impl=default_impl(),
+                                 wino=valid_points((3, 4, 6, 3)))
+    chain = make_int8_engine_fn(S, B, C, impl={
+        **default_impl(), **{f"layer{i}": cb.chain_int8 for i in range(1, 5)}})
+    exact = YOLOInference(model, dev, image_size=SIZE)
+
+    def int8(f, qq):
+        return ((lambda images, conf, nms: f(qq, images, conf, nms)),
+                (lambda conf, nms: GraphedPredict(
+                    lambda images: f(qq, images, conf, nms), dev)))
+
+    engines = {"default int8": int8(fn, q), "chained int8": int8(chain, q),
+               "wino int8 (all 16)": int8(wfn, wq),
+               "fp32 exact": ((lambda images, conf, nms: exact.predict_batch_arrays(
+                   images, conf, nms)),
+                   (lambda conf, nms: GraphedPredict(exact.batch_fn(conf, nms), dev)))}
+    return engines, (fn, q)
+
+
+def _capture_mib(graphed, images) -> float:
+    """Captures ``graphed`` at ``images``' shape; MiB the reserved memory grows
+    by, with the cache emptied before and after: the graph's private pool,
+    its static input and what the warm-up keeps (a side stream's library
+    workspaces)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    graphed(images)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_reserved() - before) / 2**20
+
+
+def phase_graphs(card: str) -> tuple:
+    """Each engine replayed from one CUDA graph per batch against its eager
+    call: bit for bit (int8) and exactly (fp32) at batch 1, 16 and 64, on
+    two image sets each (the second replay's result is its own images'); ms
+    a batch of both by CUDA events, the eager call's host issue time and
+    the memory each capture keeps reserved. Every engine must capture: the
+    chained engine's cooperative launch included."""
+    import torch
+
+    engines, (fn, q) = _serving_engines()
+    thresholds = {}
+    for name, (eager, make) in engines.items():
+        probe = _uint8_batch(70, SLICE_BATCH)
+        thr = thresholds[name] = float(eager(probe, float("-inf"), 2.0).scores.float().median())
+        graphed = make(thr, IOU_T)
+        for batch in GRAPH_BATCHES:
+            first, second = _uint8_batch(72 + batch, batch), _uint8_batch(73 + batch, batch)
+            captured_mib = _capture_mib(graphed, first)
+            for images in (first, second):
+                want = [t.clone() for t in eager(images, thr, IOU_T)]
+                got = graphed(images)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name}, batch {batch}: the replayed detections "
+                                         f"differ from the eager ones")
+            kept = int(want[3].sum())
+            counts = _counts()
+            for _ in range(3):
+                graphed(first)
+            torch.cuda.synchronize()
+            if _counts() != counts:
+                raise AssertionError(f"{name}: replays moved the launch counters")
+            iters = 5 if name == "fp32 exact" and batch == 64 else 20
+            run = {"graph": lambda: graphed(first), "eager": lambda: eager(first, thr, IOU_T)}
+            ms = {"graph": [], "eager": []}
+            for turn in ("graph", "eager", "eager", "graph"):
+                ms[turn].append(cuda_ms(run[turn], iters=iters))
+            issue_us = host_us(run["eager"], calls=2)
+            g, e = min(ms["graph"]), min(ms["eager"])
+            log(f"[27] {card}: {name}, batch {batch}: replay == eager bit for bit on 2 "
+                f"image sets ({kept} kept); ms/batch in turns graph, eager, eager, graph: "
+                f"{ms['graph'][0]:.4f}, {ms['eager'][0]:.4f}, {ms['eager'][1]:.4f}, "
+                f"{ms['graph'][1]:.4f} (best {batch * 1000.0 / g:.1f} vs "
+                f"{batch * 1000.0 / e:.1f} img/s, {e / g:.2f}x; CUDA events); eager host issue "
+                f"{issue_us / 1000:.3f} ms a batch; capture keeps {captured_mib:.1f} MiB "
+                f"reserved")
+        del graphed
+        torch.cuda.empty_cache()
+    return fn, q, thresholds["default int8"]
+
+
+# ---------------------------------------------------------------- phase 28
+def _png_bytes(array) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(array).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _tie_order(entries: list) -> list:
+    """JSON detections sorted by score, entries whose scores lie within the
+    tolerance of their neighbour's taken as tied (ordered by class and box):
+    two buckets may order such a pair either way."""
+    groups, out = [], []
+    for e in entries:
+        if groups and abs(e["score"] - groups[-1][-1]["score"]) <= (
+                SERVE_ATOL + SERVE_RTOL * abs(e["score"])):
+            groups[-1].append(e)
+        else:
+            groups.append([e])
+    for g in groups:
+        out += sorted(g, key=lambda e: (e["class_id"], e["box"]))
+    return out
+
+
+def _same_json(got: list, want: list) -> bool:
+    """Same count, classes and order (up to score ties), box and score
+    within JAX's batch-1 tolerance."""
+    if len(got) != len(want):
+        return False
+    got, want = _tie_order(got), _tie_order(want)
+    if [(d["class_id"], d.get("class_name")) for d in got] != [
+            (d["class_id"], d.get("class_name")) for d in want]:
+        return False
+    return bool(np.allclose([d["score"] for d in got], [d["score"] for d in want],
+                            rtol=SERVE_RTOL, atol=SERVE_ATOL) and
+                np.allclose([d["box"] for d in got], [d["box"] for d in want],
+                            rtol=SERVE_RTOL, atol=SERVE_ATOL))
+
+
+def _post_png(port: int, body: bytes) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/predict", body=body,
+                 headers={"Content-Type": "application/octet-stream"})
+    resp = conn.getresponse()
+    payload = json.loads(resp.read().decode())
+    conn.close()
+    return resp.status, payload
+
+
+def _get_json(port: int, path: str) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    payload = json.loads(resp.read().decode())
+    conn.close()
+    return resp.status, payload
+
+
+def _load(call, clients: int, requests: int) -> tuple:
+    """``call(k)`` for k in range(requests) from ``clients`` threads: (wall s,
+    per-request latencies in ms, results by k)."""
+    import threading
+
+    results, latencies = [None] * requests, [0.0] * requests
+    errors = []
+
+    def client(ks):
+        for k in ks:
+            t0 = time.perf_counter()
+            try:
+                results[k] = call(k)
+            except Exception as exc:  # noqa: BLE001 — reported after the join
+                errors.append(f"request {k}: {exc!r}")
+            latencies[k] = (time.perf_counter() - t0) * 1000.0
+
+    threads = [threading.Thread(target=client, args=(range(c, requests, clients),))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{len(errors)} request(s) failed: {errors[:3]}")
+    return wall, latencies, results
+
+
+# Kernels of one served batch of the default int8 engine: stem front, int8
+# conv, NMS (phase 12).
+SERVED_LAUNCHES = (1, 58, 1)
+SERVED_KERNELS = ("quant_s2d_kernel", "int8_conv_kernel", "nms_kernel")
+
+
+def _device_activity(prof) -> tuple:
+    """(device busy ms, launches of SERVED_KERNELS) in a torch.profiler
+    trace. Busy is the sum of its kernels' and copies' device times: the
+    served path runs on one stream, so none overlap."""
+    import torch
+
+    busy, launches = 0.0, [0] * len(SERVED_KERNELS)
+    for evt in prof.key_averages():
+        is_range = "#" in evt.key and "(" not in evt.key
+        if evt.device_type != torch.autograd.DeviceType.CUDA or is_range:
+            continue
+        busy += evt.device_time_total / 1000.0
+        for i, name in enumerate(SERVED_KERNELS):
+            if name in evt.key and "reduce" not in evt.key:
+                launches[i] += evt.count
+    return busy, tuple(launches)
+
+
+# Host pause at each edge of a traced window. CUPTI drops kernels whose
+# device timestamps fall outside the window; without a margin the trace
+# missed the first 3-5 kernels after its start on the card.
+TRACE_MARGIN_S = 0.02
+
+
+def _trace(fn):
+    """(``fn()``, its torch.profiler trace of device activity). A traced
+    warm-up step that the trace drops runs first (CUPTI starts there), and
+    the window has a host pause at each edge."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(TRACE_MARGIN_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        prof.step()
+    return out, prof
+
+
+def _traced_load(call, clients: int, requests: int) -> tuple:
+    """``_load`` under ``_trace``: (wall s, latencies, results, device busy
+    ms, launches of SERVED_KERNELS), busy 0 where CUPTI recorded no device
+    activity."""
+    out, prof = _trace(lambda: _load(call, clients, requests))
+    return out + _device_activity(prof)
+
+
+def _launches_seen(tag: str, launches: tuple, want: tuple) -> str:
+    """A trace's launches of SERVED_KERNELS against the count the path must
+    make. CUPTI may drop a record, never add one: more than ``want`` raises,
+    fewer is reported."""
+    if any(a > b for a, b in zip(launches, want)):
+        raise AssertionError(f"{tag}: the trace saw stem/conv/NMS launches {launches}, more "
+                             f"than the {want} of the path")
+    return (f"{launches}" if launches == want else
+            f"{launches} of {want} (CUPTI dropped {sum(want) - sum(launches)} record(s))")
+
+
+def _load_report(tag, card, batcher, before, wall, latencies, busy, launches) -> str:
+    """The window's rates and bucket use; its idle share from the traced busy
+    time. Raises where the trace saw more device time than the window's wall
+    time, or more launches than its batches make."""
+    batches = {b: batcher.bucket_batches[b] - before.get(b, 0) for b in SERVE_BUCKETS}
+    n_batches = sum(batches.values())
+    rows = sum(b * k for b, k in batches.items())
+    wall_ms = wall * 1000.0
+    if busy > 0:
+        if busy > wall_ms:
+            raise AssertionError(f"{tag}: the trace saw {busy:.3f} ms busy in {wall_ms:.3f} ms")
+        seen = _launches_seen(tag, launches, tuple(n_batches * k for k in SERVED_LAUNCHES))
+        idle = (f"device busy {busy:.3f} ms of {wall_ms:.3f}, idle "
+                f"{100 * (1 - busy / wall_ms):.1f}%; launches stem/conv/NMS {seen}, "
+                f"torch.profiler")
+    else:
+        idle = "idle not measured (torch.profiler saw no device time)"
+    lat = np.asarray(latencies)
+    return (f"{card}: {tag}: {len(lat) / wall:.1f} requests/s, p50 "
+            f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms; "
+            f"{n_batches} batches {dict(batches)}, {len(lat) / n_batches:.2f} images a batch, "
+            f"bucket fill {100.0 * len(lat) / rows:.1f}%; {idle}")
+
+
+def _replay_launches(graphed, images, replays: int = 5) -> str:
+    """Launches of SERVED_KERNELS that ``replays`` replays make, by
+    torch.profiler (CUPTI records a graph's kernels), against ``replays`` x
+    SERVED_LAUNCHES."""
+    def run():
+        for _ in range(replays):
+            graphed(images)
+
+    graphed(images)
+    busy, launches = _device_activity(_trace(run)[1])
+    if not busy > 0:
+        return "not measured (torch.profiler saw no device time)"
+    want = tuple(replays * k for k in SERVED_LAUNCHES)
+    return f"{_launches_seen('replays', launches, want)} in {replays} replays, torch.profiler"
+
+
+def phase_server(fn, q, thr: float, card: str) -> None:
+    """YOLOServer on 127.0.0.1:0 over the graph-wrapped default int8 engine,
+    buckets (1, 4, 16), 2 ms: 1-64 concurrent HTTP clients, 256 requests
+    each, every answer against a direct batch-1 call; the batcher alone at
+    the same loads; buckets filled exactly, bit for bit against the direct
+    bucket call; then python -m yolo_tpu_torch.serve --engine ... --port 0."""
+    import queue
+    import signal
+    import threading
+
+    import torch
+
+    from yolo_tpu_torch.data.voc import VOC_CLASSES
+    from yolo_tpu_torch.ops.decode import Detections
+    from yolo_tpu_torch.serving import RequestBatcher, YOLOServer
+    from yolo_tpu_torch.serving.export import save_engine
+    from yolo_tpu_torch.serving.graphs import WARMUP_RUNS, GraphedPredict
+    from yolo_tpu_torch.serving.server import detections_to_json
+
+    arrays = np.random.default_rng(61).integers(0, 256, size=(SERVE_IMAGES, SIZE, SIZE, 3),
+                                                dtype=np.uint8)
+    pngs = [_png_bytes(a) for a in arrays]
+
+    def direct(batch):
+        dets = fn(q, torch.from_numpy(np.ascontiguousarray(batch)).cuda(), thr, IOU_T)
+        return [t.cpu().numpy() for t in dets]
+
+    want = [detections_to_json(Detections(*(f[0] for f in direct(a[None]))), VOC_CLASSES)
+            for a in arrays]
+    graphed = GraphedPredict(lambda images: fn(q, images, thr, IOU_T), "cuda")
+    _zero_counts()
+    server = YOLOServer(graphed, SIZE, host="127.0.0.1", port=0, buckets=SERVE_BUCKETS,
+                        max_delay_ms=2.0)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        server.warmup()
+        captured = _counts()
+        at_capture = tuple(len(SERVE_BUCKETS) * (WARMUP_RUNS + 1) * k for k in SERVED_LAUNCHES)
+        if captured != at_capture:
+            raise AssertionError(f"capturing the served buckets counted stem/conv/NMS "
+                                 f"{captured}, want {at_capture}")
+        took = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        log(f"[28] YOLOServer on http://127.0.0.1:{server.port}, buckets {SERVE_BUCKETS}, "
+            f"2 ms: {len(SERVE_BUCKETS)} graphs captured in {took:.1f} s; launches counted "
+            f"at capture (stem/conv/NMS) {captured} (== {len(SERVE_BUCKETS)} buckets x "
+            f"{WARMUP_RUNS + 1} runs x {SERVED_LAUNCHES}); the captures keep "
+            f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB reserved")
+        bucket_images = {b: _uint8_batch(80, b) for b in SERVE_BUCKETS}
+        bucket_ms = {b: cuda_ms(lambda b=b: graphed(bucket_images[b]), iters=20)
+                     for b in SERVE_BUCKETS}
+        log(f"[28] replay ms a batch by bucket (CUDA events): " + ", ".join(
+            f"{b}: {ms:.4f}" for b, ms in bucket_ms.items()) + "; launches stem/conv/NMS "
+            + _replay_launches(graphed, bucket_images[SERVE_BUCKETS[-1]]))
+
+        mismatches = 0
+        in_process = None
+        for clients in SERVE_CLIENTS:
+            before = dict(server.batcher.bucket_batches)
+            wall, lat, res, busy, launches = _traced_load(
+                lambda k: _post_png(server.port, pngs[k % SERVE_IMAGES]), clients,
+                SERVE_REQUESTS)
+            for k, (status, body) in enumerate(res):
+                if status != 200 or not _same_json(body["detections"], want[k % SERVE_IMAGES]):
+                    mismatches += 1
+            in_process = in_process or res[0][1]["detections"]
+            log(f"[28] " + _load_report(f"HTTP, {clients} client(s)", card, server.batcher,
+                                        before, wall, lat, busy, launches))
+        if mismatches:
+            raise AssertionError(f"{mismatches} HTTP answer(s) differ from the direct "
+                                 f"batch-1 call")
+        if _counts() != captured:
+            raise AssertionError(f"replays moved the launch counters: {captured} -> "
+                                 f"{_counts()}")
+        status, health = _get_json(server.port, "/healthz")
+        log(f"[28] every HTTP answer == detections_to_json of a direct batch-1 call (rtol "
+            f"{SERVE_RTOL}, atol {SERVE_ATOL}); launch counters unchanged by the replays; "
+            f"/healthz {status} {health}")
+
+        batcher = server.batcher
+        for clients in SERVE_CLIENTS:
+            before = dict(batcher.bucket_batches)
+            wall, lat, res, busy, launches = _traced_load(
+                lambda k: batcher.submit(arrays[k % SERVE_IMAGES]).result(timeout=120),
+                clients, SERVE_REQUESTS)
+            bad = sum(not _same_json(detections_to_json(d, VOC_CLASSES),
+                                     want[k % SERVE_IMAGES]) for k, d in enumerate(res))
+            if bad:
+                raise AssertionError(f"{bad} batcher result(s) differ from the direct call")
+            log(f"[28] " + _load_report(f"batcher alone (uint8 arrays), {clients} client(s)",
+                                        card, batcher, before, wall, lat, busy, launches))
+    finally:
+        server.close()
+
+    for bucket in SERVE_BUCKETS:
+        with RequestBatcher(graphed, (SIZE, SIZE, 3), buckets=(bucket,), max_delay_ms=1000.0,
+                            dtype=np.uint8) as exact:
+            for start in range(0, SERVE_IMAGES, bucket):
+                group = arrays[start:start + bucket]
+                got = [f.result(timeout=120) for f in [exact.submit(a) for a in group]]
+                ref = direct(group)
+                if not all(np.array_equal(g[f], ref[f][i]) for i, g in enumerate(got)
+                           for f in range(4)):
+                    raise AssertionError(f"bucket {bucket}: a batcher result differs from the "
+                                         f"direct call on its bucket")
+            if exact.bucket_batches[bucket] != SERVE_IMAGES // bucket:
+                raise AssertionError(f"bucket {bucket}: {dict(exact.bucket_batches)} batches")
+    log(f"[28] batcher alone, groups that fill a bucket exactly ({SERVE_BUCKETS}): every "
+        f"result == the direct call on its bucket, bit for bit")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        artifact = Path(tmp) / "engine.npz"
+        save_engine(artifact, q, S=S, B=B, num_classes=C)
+        cmd = [sys.executable, "-m", "yolo_tpu_torch.serve", "--engine", str(artifact),
+               "--port", "0", f"--conf-threshold={thr!r}"]
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, text=True)
+        lines: "queue.Queue" = queue.Queue()
+
+        def read():
+            for ln in proc.stdout:
+                lines.put(ln)
+            lines.put(None)  # the process closed its output
+
+        threading.Thread(target=read, daemon=True).start()
+        t0 = time.perf_counter()
+        try:
+            port, seen = None, []
+            while port is None:
+                line = lines.get(timeout=max(1.0, 240 - (time.perf_counter() - t0)))
+                if line is None:
+                    raise AssertionError(f"serve exited before it served: {seen}")
+                seen.append(line.strip())
+                if line.startswith("serving on http://"):
+                    port = int(line.split()[2].rsplit(":", 1)[1])
+            started = time.perf_counter() - t0
+            status, health = _get_json(port, "/healthz")
+            if status != 200 or health.get("status") != "ok":
+                raise AssertionError(f"serve /healthz: {status} {health}")
+            status, body = _post_png(port, pngs[0])
+            if status != 200 or not _same_json(body["detections"], in_process):
+                raise AssertionError(f"serve /predict: {status}, differs from the in-process "
+                                     f"answer")
+            log(f"[28] python -m yolo_tpu_torch.serve --engine <artifact> --port 0: "
+                f"{' | '.join(seen)} (ready in {started:.1f} s); /healthz ok; /predict == the "
+                f"in-process answer ({len(body['detections'])} detections)")
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"serve exited with {proc.returncode}")
+    del graphed
+    torch.cuda.empty_cache()
 
 
 def int8_conv_times(root: Path) -> None:
@@ -3071,6 +3587,9 @@ def main() -> None:
     eval_nms, eval_launches = timed(24, lambda: (phase_eval_parity(), phase_eval_slice()))
     timed(25, phase_eval_timing, card)
     timed(26, phase_accuracy_gate)
+    fn, q, thr = timed(27, phase_graphs, card)
+    timed(28, phase_server, fn, q, thr, card)
+    del fn, q
     log(f"[24] evaluator path launches: NMS {eval_nms} for {len(eval_batches())} metric "
         f"batches; CLI runs (stem, int8 conv, NMS): {eval_launches}")
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))

@@ -4,7 +4,8 @@ Winograd conv (tap pass + tap GEMM) with its ablation modes, and the
 kernels of the ported experiments/ harnesses: the fused Adam update, the
 int8 dot + requant (the int8 conv's kernel on a 1x1 view), the bf16 3x3
 conv + BN statistics and the bf16 fused bottleneck) against their plain
-twins, on the card.
+twins, on the card; and the serving engines replayed from captured CUDA
+graphs (serving/graphs.py) against their eager calls.
 
 Marked ``cuda``: these tests need an NVIDIA GPU and nvcc, and skip without
 them. Run them on the GPU machine with
@@ -931,3 +932,136 @@ def test_eval_decode_and_matching_on_card_equal_cpu(device):
             masks, thr))
     for a, b in zip(out["cpu"], out[str(device)]):
         assert torch.equal(a, b.cpu())
+
+
+# ------------------------------------------------------------ CUDA graphs
+GRAPH_ENGINES = ("default", "wino", "chain", "exact")
+
+
+@pytest.fixture(scope="module")
+def graph_stack():
+    """A small model (2 blocks a stage, 64x64) on the card and its four
+    serving engines: default int8, all 8 Winograd points, stage chains on
+    every stage, the exact float32 forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from yolo_tpu_torch.inference import YOLOInference
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+    from yolo_tpu_torch.serving import winograd
+    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
+                                               make_int8_engine_fn)
+
+    dev = torch.device("cuda")
+    model = create_model("resnet", 20, 7, 2, device=dev, stage_sizes=(2, 2, 2, 2),
+                         image_size=64, generator=torch.Generator(device=dev).manual_seed(0))
+    r = np.random.default_rng(4)
+    calib = torch.from_numpy(r.normal(size=(4, 64, 64, 3)).astype(np.float32)).to(dev)
+    fn, q = build_int8_predict(model, [calib], impl=default_impl())
+    wfn, wq = build_int8_predict(model, [calib], impl=default_impl(),
+                                 wino=winograd.valid_points((2, 2, 2, 2)))
+    chain = make_int8_engine_fn(7, 2, 20, impl={
+        **default_impl(), **{f"layer{i}": cb.chain_int8 for i in range(1, 5)}})
+    return {"default": (fn, q), "wino": (wfn, wq), "chain": (chain, q),
+            "exact": YOLOInference(model, dev, image_size=64)}
+
+
+def _eager_and_graphed(stack, name, conf, nms):
+    from yolo_tpu_torch.serving.graphs import GraphedPredict
+
+    if name == "exact":
+        engine = stack["exact"]
+        return (lambda images: engine.predict_batch_arrays(images, conf, nms),
+                GraphedPredict(engine.batch_fn(conf, nms), engine.device))
+    fn, q = stack[name]
+    eager = lambda images: fn(q, images, conf, nms)  # noqa: E731
+    return eager, GraphedPredict(eager, q["stem"]["wq"].device)
+
+
+def _images(seed, n):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(0, 256, size=(n, 64, 64, 3), dtype=np.uint8)).cuda()
+
+
+def _median_score(eager, images):
+    return float(eager(images).scores.float().median())
+
+
+def _counts():
+    from yolo_tpu_torch.serving import cuda_bottleneck as cb
+    from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
+
+    return (cuda_nms.LAUNCHES, cuda_stem.LAUNCHES, cuda_int8.LAUNCHES,
+            cb.LAUNCHES["chain"], cuda_wino.LAUNCHES["full"])
+
+
+@pytest.mark.parametrize("name", GRAPH_ENGINES)
+def test_graph_replay_equals_eager(graph_stack, name):
+    """Each engine replayed from its graph equals its eager call bit for bit
+    at batch 1 and 3; a replay on new images gives their eager result (no
+    stale output); replays move no launch counter (they count at capture)."""
+    eager, _ = _eager_and_graphed(graph_stack, name, -1e30, 2.0)
+    conf = _median_score(eager, _images(20, 3))
+    eager, graphed = _eager_and_graphed(graph_stack, name, conf, 0.4)
+    for n in (1, 3):
+        first, second = _images(21 + n, n), _images(31 + n, n)
+        want = [t.clone() for t in eager(first)]
+        got = graphed(first)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert 0 < int(want[3].sum()) < n * 98
+        counts = _counts()
+        want2 = [t.clone() for t in eager(second)]
+        assert _counts() != counts  # an eager call counts its launches
+        counts = _counts()
+        got2 = graphed(second)
+        torch.cuda.synchronize()
+        assert _counts() == counts
+        assert all(torch.equal(a, b) for a, b in zip(got2, want2))
+        assert not torch.equal(want2[1], want[1])
+
+
+def test_graphs_refuse_the_cpu(device):
+    from yolo_tpu_torch.serving.graphs import GraphedPredict
+
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        GraphedPredict(lambda images: images, "cpu")
+
+
+def test_new_thresholds_make_a_new_wrapper(graph_stack):
+    """Thresholds are host values at capture: each (conf, nms) pair has its
+    own wrapper, and each equals the eager call at its own thresholds."""
+    images = _images(40, 3)
+    eager, _ = _eager_and_graphed(graph_stack, "default", -1e30, 2.0)
+    median = _median_score(eager, images)
+    masks = []
+    # IoU >= 0 holds for every pair: NMS at 0 keeps one candidate a class.
+    for conf, nms in ((median, 0.4), (-1e30, 0.4), (median, 0.0)):
+        eager, graphed = _eager_and_graphed(graph_stack, "default", conf, nms)
+        want = [t.clone() for t in eager(images)]
+        got = graphed(images)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        masks.append(want[3])
+    assert not torch.equal(masks[0], masks[1]) and not torch.equal(masks[0], masks[2])
+
+
+def test_batcher_over_graphs_equals_the_padded_bucket_call(graph_stack):
+    """RequestBatcher (pinned staging, one copy to the card) over a
+    GraphedPredict: each result equals an eager call on the same zero-padded
+    bucket, bit for bit."""
+    from yolo_tpu_torch.serving import RequestBatcher
+
+    eager, _ = _eager_and_graphed(graph_stack, "default", -1e30, 2.0)
+    conf = _median_score(eager, _images(50, 3))
+    eager, graphed = _eager_and_graphed(graph_stack, "default", conf, 0.4)
+    images = _images(51, 3).cpu().numpy()
+    with RequestBatcher(graphed, (64, 64, 3), buckets=(4,), max_delay_ms=500.0,
+                        dtype=np.uint8) as batcher:
+        batcher.warmup()
+        got = [f.result(timeout=60) for f in [batcher.submit(im) for im in images]]
+    assert batcher.bucket_batches[4] == 1
+    padded = np.zeros((4, 64, 64, 3), np.uint8)
+    padded[:3] = images
+    want = [t.cpu().numpy() for t in eager(torch.from_numpy(padded).cuda())]
+    for i, g in enumerate(got):
+        for a, w in zip(g, want):
+            np.testing.assert_array_equal(a, w[i])

@@ -52,7 +52,9 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch.experiments.fused_block_pallas\n"
         "import yolo_tpu_torch.ops.matching, yolo_tpu_torch.metrics, yolo_tpu_torch.evaluate\n"
         "import yolo_tpu_torch.overfit_check, yolo_tpu_torch.quant_accuracy\n"
-        "import yolo_tpu_torch.bench_eval\n"
+        "import yolo_tpu_torch.bench_eval, yolo_tpu_torch.serve\n"
+        "import yolo_tpu_torch.serving.graphs, yolo_tpu_torch.serving.batcher\n"
+        "import yolo_tpu_torch.serving.server\n"
         "assert 'triton' not in sys.modules\n"
         "assert yolo_tpu_torch.YOLOInference is yolo_tpu_torch.inference.YOLOInference\n"
         "print('OK')\n"

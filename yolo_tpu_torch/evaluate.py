@@ -167,7 +167,7 @@ def main(argv=None):
 
         if args.engine:
             try:
-                q, impl = load_artifact(args.engine, model, device)
+                q, impl, _ = load_artifact(args.engine, model, device)
             except ValueError as exc:
                 raise SystemExit(str(exc))
             print(f"int8 engine artifact: {args.engine}")

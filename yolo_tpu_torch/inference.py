@@ -31,6 +31,26 @@ from yolo_tpu_torch.ops.cuda_nms import nms
 from yolo_tpu_torch.ops.decode import Detections, decode_predictions
 
 
+def preprocess_array(
+    image: np.ndarray, size: int = 448, value_range: str = "auto"
+) -> np.ndarray:
+    """HWC uint8/float RGB -> normalized float32 (size, size, 3).
+
+    The dataset's eval transform (data/transforms.py), so that every entry
+    point preprocesses alike. ``value_range`` declares a float input's scale:
+    "unit" ([0, 1]), "255" ([0, 255]) or "auto" (max <= 1.0 means unit;
+    ambiguous for a dark 0-255 image, so pass the range when it is known).
+    Floats become uint8 by rounding to nearest, not by truncation.
+    """
+    if image.dtype != np.uint8:
+        if value_range not in ("auto", "unit", "255"):
+            raise ValueError(f"value_range must be auto|unit|255, got {value_range!r}")
+        is_unit = value_range == "unit" or (value_range == "auto" and image.max() <= 1.0)
+        scaled = image * 255.0 if is_unit else image
+        image = np.clip(np.round(scaled), 0, 255).astype(np.uint8)
+    return eval_transform(image, (size, size))
+
+
 class YOLOInference:
     """Run object detection with the model on ``device``.
 
@@ -92,6 +112,32 @@ class YOLOInference:
         return self._run(torch.as_tensor(images, device=self.device), conf_threshold,
                          nms_threshold)
 
+    def batch_fn(self, conf_threshold: float, nms_threshold: float):
+        """The batch path closed over fixed thresholds: ``(images (n, H, W, 3)
+        on the device) -> Detections``, the exact float32 forward or the built
+        int8 engine (holding its q-params). Wrap it in
+        ``serving.graphs.GraphedPredict`` to replay it from CUDA graphs.
+
+        A lazily calibrating int8 engine that has not yet seen a batch is
+        refused: its first batch would calibrate, on the host.
+        """
+        conf, nms_t = float(conf_threshold), float(nms_threshold)
+        if self._run == self._exact:
+            run = self._exact
+        elif "fn" in self._int8_state:
+            fn, q = self._int8_state["fn"], self._int8_state["q"]
+            run = lambda images, conf, nms_t: fn(q, images, conf, nms_t)  # noqa: E731
+        else:
+            raise RuntimeError(
+                "the int8 engine calibrates on its first predicted batch; build it with "
+                "calibration= or engine_artifact= (or predict one batch) first")
+
+        @torch.inference_mode()
+        def predict(images: torch.Tensor) -> Detections:
+            return run(images, conf, nms_t)
+
+        return predict
+
     def _exact(self, images: torch.Tensor, conf_threshold: float,
                nms_threshold: float) -> Detections:
         if images.dtype == torch.uint8:
@@ -146,7 +192,7 @@ class YOLOInference:
         """Serve a saved engine: no fold and no calibration (engine.load_artifact)."""
         from yolo_tpu_torch.serving.engine import load_artifact, make_int8_engine_fn
 
-        q, impl = load_artifact(path, self.model, self.device)
+        q, impl, _ = load_artifact(path, self.model, self.device)
         m = self.model
         fn = make_int8_engine_fn(m.S, m.B, m.num_classes, impl=impl)
         self._int8_state.update(fn=fn, q=q)

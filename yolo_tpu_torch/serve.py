@@ -1,0 +1,172 @@
+"""Serving CLI of the port: ``python -m yolo_tpu_torch.serve``.
+
+An HTTP detection endpoint over the int8 engine (serving/server.py), with
+the flags of the JAX package's serve.py and ``--device``. Requests coalesce
+through the RequestBatcher into fixed-bucket batches; on the card each
+bucket replays one CUDA graph of the engine (serving/graphs.py), captured
+before the server takes traffic.
+
+Two ways to provide the engine:
+  --checkpoint CKPT [--calib-dir DIR]   fold + calibrate + quantize live
+  --engine ART.npz                      frozen q-params (predict --save-engine,
+                                        or the JAX package's artifact)
+
+``--device`` defaults to ``cuda`` and exits when CUDA is absent; ``--device
+cpu`` serves the engine eagerly (its kernels' plain twins) and says so.
+``--compiled`` and ``--save-compiled`` (the JAX package's AOT StableHLO
+artifact) are not ported.
+
+Example:
+  python -m yolo_tpu_torch.serve --engine yolo_int8.npz --port 8000
+  curl -s -X POST --data-binary @dog.jpg localhost:8000/predict
+"""
+
+from __future__ import annotations
+
+import argparse
+import threading
+from pathlib import Path
+
+# Threshold defaults (the reference predict.py's).
+DEFAULT_CONF = 0.5
+DEFAULT_NMS = 0.4
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Serve YOLOv1 over HTTP (PyTorch/CUDA)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint", default=None)
+    src.add_argument("--engine", default=None,
+                     help="frozen int8 engine artifact (.npz)")
+    src.add_argument("--compiled", default=None,
+                     help="the JAX package's AOT StableHLO artifact; not yet ported")
+    p.add_argument("--calib-dir", default=None,
+                   help="directory of images for int8 activation calibration "
+                        "(with --checkpoint; defaults to random noise with a "
+                        "warning)")
+    p.add_argument("--num-classes", type=int, default=20)
+    p.add_argument("--backbone", default="resnet", choices=["resnet"])
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--image-size", type=int, default=448)
+    p.add_argument("--conf-threshold", type=float, default=DEFAULT_CONF)
+    p.add_argument("--nms-threshold", type=float, default=DEFAULT_NMS)
+    p.add_argument("--buckets", default="1,4,16",
+                   help="comma-separated batch buckets (one CUDA graph each)")
+    p.add_argument("--max-delay-ms", type=float, default=2.0,
+                   help="max wait for batch co-riders (latency knob)")
+    p.add_argument("--save-compiled", default=None,
+                   help="freeze the engine to an AOT artifact; not yet ported")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default), cuda:N or cpu")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    for flag in ("compiled", "save_compiled"):
+        if getattr(args, flag):
+            raise SystemExit(
+                f"--{flag.replace('_', '-')} is not yet ported to yolo_tpu_torch "
+                f"(ROADMAP: the AOT artifact)")
+
+
+def build_predict(args):
+    """(predict(images) -> Detections, buckets, image_size).
+
+    On CUDA ``predict`` is a ``GraphedPredict`` (nothing captured yet); on
+    the CPU, the engine closed over its q-params and thresholds.
+    """
+    import torch
+
+    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
+                                               load_artifact, make_int8_engine_fn)
+
+    _refuse_unported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: CUDA is not available")
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+
+    if args.engine:
+        q, impl, meta = load_artifact(args.engine, None, device)
+        fn = make_int8_engine_fn(meta["S"], meta["B"], meta["num_classes"], impl=impl)
+    else:
+        from yolo_tpu_torch.convert import resnet_layout
+        from yolo_tpu_torch.models import create_model
+        from yolo_tpu_torch.training.checkpoints import load_model
+
+        if not Path(args.checkpoint).exists():
+            raise SystemExit(f"Checkpoint not found: {args.checkpoint}")
+        state_dict = load_model(args.checkpoint)[0]
+        stage_sizes, _ = resnet_layout(state_dict)
+        model = create_model(args.backbone, num_classes=args.num_classes, device=device,
+                             stage_sizes=stage_sizes, image_size=args.image_size)
+        model.load_state_dict(state_dict)
+        calib = [torch.from_numpy(b).to(device) for b in _calibration_batches(args)]
+        fn, q = build_int8_predict(model, calib, impl=default_impl())
+
+    conf, nms = float(args.conf_threshold), float(args.nms_threshold)
+
+    def predict(images):
+        return fn(q, images, conf, nms)
+
+    if device.type == "cuda":
+        from yolo_tpu_torch.serving.graphs import GraphedPredict
+
+        return GraphedPredict(predict, device), buckets, args.image_size
+    return predict, buckets, args.image_size
+
+
+def _calibration_batches(args):
+    import numpy as np
+
+    size = args.image_size
+    if args.calib_dir:
+        from yolo_tpu_torch.data.transforms import eval_transform, load_image_rgb
+
+        paths = sorted(Path(args.calib_dir).iterdir())[:32]
+        images = [
+            eval_transform(load_image_rgb(str(p)), (size, size))
+            for p in paths if p.suffix.lower() in
+            {".jpg", ".jpeg", ".png", ".bmp"}
+        ]
+        if images:
+            return [np.stack(images[i:i + 8])
+                    for i in range(0, len(images), 8)]
+    print("warning: calibrating int8 activation scales on random noise — "
+          "pass --calib-dir with representative images for deployment", flush=True)
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal((8, size, size, 3)).astype(np.float32)
+            for _ in range(2)]
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+    eager = args.device.split(":")[0] == "cpu"
+    if eager:
+        print(f"--device {args.device}: serving the engine eagerly (no CUDA graphs)",
+              flush=True)
+
+    predict, buckets, image_size = build_predict(args)
+
+    from yolo_tpu_torch.serving import YOLOServer
+
+    with YOLOServer(
+        predict, image_size,
+        host=args.host, port=args.port,
+        buckets=buckets, max_delay_ms=args.max_delay_ms,
+    ) as server:
+        print(f"{'warming up' if eager else 'capturing'} {len(buckets)} bucket(s) "
+              f"{buckets} ...", flush=True)
+        server.warmup()
+        print(f"serving on http://{server.host}:{server.port} "
+              f"(POST /predict, GET /healthz); Ctrl-C to stop", flush=True)
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:
+            print("\nshutting down", flush=True)
+
+
+if __name__ == "__main__":
+    main()

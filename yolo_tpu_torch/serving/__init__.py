@@ -13,21 +13,30 @@
   their kernel ``csrc/int8_wino.cu`` with its ablation modes;
 - ``engine``: the int8-resident forward with the decode + NMS tail;
 - ``export``: ``.npz`` engine artifacts, interchangeable with the JAX
-  package's.
+  package's;
+- ``graphs``: one captured CUDA graph per batch shape of a serving
+  callable (``GraphedPredict``), the counterpart of JAX's per-shape jit;
+- ``batcher``: ``RequestBatcher``, single-image requests coalesced into
+  fixed-bucket batches (one graph a bucket on the card);
+- ``server``: ``YOLOServer``, the HTTP front end over the batcher
+  (``python -m yolo_tpu_torch.serve``).
 
-Serving mode is opt-in: ``YOLOInference(..., optimize="int8")``. The request
-batcher, the HTTP server, the sharded engine and the AOT artifact are not
-ported yet.
+Serving mode is opt-in: ``YOLOInference(..., optimize="int8")``. The sharded
+engine and the AOT artifact are not ported yet.
 """
 
+from yolo_tpu_torch.serving.batcher import RequestBatcher
 from yolo_tpu_torch.serving.cuda_bottleneck import block_int8, chain_int8
 from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward, make_int8_engine_fn
 from yolo_tpu_torch.serving.export import load_engine, save_engine
 from yolo_tpu_torch.serving.fold import fold_flagship, folded_forward
 from yolo_tpu_torch.serving.quant import ACT_POINTS, calibrate_activations, quantize_folded
+from yolo_tpu_torch.serving.server import YOLOServer
 
 __all__ = [
     "ACT_POINTS",
+    "RequestBatcher",
+    "YOLOServer",
     "block_int8",
     "build_int8_predict",
     "calibrate_activations",

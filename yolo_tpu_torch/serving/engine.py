@@ -221,10 +221,11 @@ def to_device(q: Dict, device) -> Dict:
 
 
 def load_artifact(path, model, device) -> tuple:
-    """A saved engine (.npz) for ``model``'s geometry: (q on ``device``, impl).
+    """A saved engine (.npz): (q on ``device``, impl, meta).
 
     No fold and no calibration. Raises ValueError when the artifact's S, B
-    or class count differs from the model's. A Winograd engine's convs get
+    or class count differs from ``model``'s; with ``model`` None the
+    geometry is the artifact's own (``meta``). A Winograd engine's convs get
     their hooks back (never a silent direct conv).
     """
     from yolo_tpu_torch.serving.export import load_engine
@@ -232,7 +233,7 @@ def load_artifact(path, model, device) -> tuple:
 
     q, meta = load_engine(path)
     for attr in ("S", "B", "num_classes"):
-        if getattr(model, attr) != meta[attr]:
+        if model is not None and getattr(model, attr) != meta[attr]:
             raise ValueError(
                 f"engine artifact {path} was exported for {attr}={meta[attr]} but the"
                 f" model has {getattr(model, attr)}")
@@ -241,7 +242,7 @@ def load_artifact(path, model, device) -> tuple:
     wino = wino_points_of(q)
     if wino:
         impl = wino_impl_hooks(wino, impl)
-    return q, impl
+    return q, impl, meta
 
 
 def make_int8_engine_fn(S: int, B: int, num_classes: int, impl: Optional[Dict] = None,
