@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths at full width (ResNet50 YOLOv1, 448x448, 20
-classes, random weights from a seed): inference (forward -> decode ->
-per-class greedy NMS through the hand-written CUDA kernel, float32),
+Drives the port's paths at full width (ResNet50 YOLOv1 and, from phase
+29, the 24-conv YOLOv1; 448x448, 20 classes, random weights from a seed):
+inference (forward -> decode -> per-class greedy NMS through the
+hand-written CUDA kernel, float32),
 training (Trainer.train_step with the train-mode BatchNorm through the four
 hand-written fused-BN kernels), int8 serving (fold -> calibrate ->
 quantize -> the quantize+space-to-depth stem kernel and the int8 conv +
@@ -15,7 +16,9 @@ chain kernel, or each identity block through the fused bottleneck kernel),
 evaluation (the mAP evaluator, NMS through the kernel on its fast path,
 the evaluate CLI, train --compute-map, the int8 accuracy gate), and serving
 (every engine replayed from captured CUDA graphs, the HTTP server, the
-batcher and the serve CLI). Phases:
+batcher and the serve CLI), and the model variants (the 24-conv model's
+inference and training, remat, and the dynamic-int8 quantized=True model
+on the int8 conv kernel). Phases:
 
 1. environment: card name and power limit, torch, compute capability 9.0;
    TF32 off for convolutions and matmuls (exact float32);
@@ -47,7 +50,9 @@ batcher and the serve CLI). Phases:
    ReLU on and off, against the twins on the same card; reductions run
    twice and must be identical; wrapper times by CUDA events, device times
    by torch.profiler, and the GB/s those reach (by the wrapper's time where
-   the profiler records no device activity);
+   the profiler records no device activity); in float32 the nearest
+   one-call torch counterparts at each shape (torch.batch_norm_stats,
+   batch_norm_elemt, batch_norm_backward_reduce, batch_norm_backward_elemt);
 8. training slice: one fp32 train step of the fused ("full") model and of
    the same weights unfused, on one dropout mask: losses, gradients and BN
    running buffers agree; each fused-BN kernel launched 53 times per step
@@ -198,7 +203,36 @@ batcher and the serve CLI). Phases:
    result equal to the direct call on that bucket bit for bit; then python
    -m yolo_tpu_torch.serve --engine <the engine's artifact> --port 0 as a
    subprocess: its printed port, /healthz, one /predict equal to the
-   in-process answer, stopped by SIGINT.
+   in-process answer, stopped by SIGINT;
+29. the 24-conv YOLOv1 (YOLOv1Backbone + SimpleHead, 448x448, 20 classes,
+   seeded): its raw grid on the card against the same model on the CPU at
+   batch 2; YOLOInference.predict_batch_arrays at batch 16 launches NMS
+   exactly once (count zeroed just before), keep masks == decode + plain
+   NMS on CPU copies; predict and evaluate --backbone yolov1 on a saved
+   .pth (evaluate: 77 finite keys, one NMS launch a batch); img/s at batch
+   1, 16 and 64;
+30. 24-conv training: three fp32 steps at batch 16 on one fixed batch and
+   dropout mask, loss finite and falling; train --backbone yolov1 at
+   --image-size 64 for an epoch, then --resume true for a second; step ms,
+   img/s and peak memory, fp32 at batch 16 and bf16 at batch 32;
+31. remat at full-width ResNet50: one fp32 step at batch 8 (one batch, one
+   dropout mask, cuDNN deterministic) for remat "none", "block" and
+   "stage", each with fused_bn False and "full": loss parts (rtol 1e-4)
+   and BN running buffers (phase 8's tolerance) agree with "none", every
+   gradient within 4x the spread of two "none" steps (relative L2, plus
+   1e-5), num_batches_tracked 1 for every BN, and the fused-BN launches
+   counted from 0: 53 each for "none", stats and normalize 105 and the
+   backward kernels 53 under "block" and "stage" (the recompute re-runs
+   the forward of the 52 BNs inside the bottlenecks); then peak memory and
+   step ms for the three at bf16 batch 64 and 128;
+32. create_model(quantized=True), the dynamic-int8 variant, at full width,
+   ResNet50 and 24-conv: every distinct int8 conv geometry at batch 2 (the
+   module's own quantized input, weight and scales) through the int8 conv
+   kernel's "float" epilogue, bit for bit against conv_int8_reference and
+   the module's output; one forward at batch 16 launches the kernel 57
+   (ResNet50: 53 backbone + 4 head convs) or 24 times (counts zeroed just
+   before); the grid within 5% of the fp32 model's max |grid|; ms a batch
+   beside the fp32 model's.
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
@@ -835,6 +869,36 @@ def phase_fused_bn_kernels() -> dict:
             # One torch call computing bn_stats' function: torch.var_mean.
             timings[(name, tag, "library_stats")] = cuda_ms(
                 lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0), iters=20)
+            if dtype == torch.float32:
+                # The nearest one-call counterparts of the four kernels, torch's
+                # SyncBatchNorm primitives, on the same operands (float32 only).
+                # What each leaves out: stats gives invstd, not var; elemt and
+                # backward_elemt take no ReLU and no residual; backward_reduce
+                # no ReLU mask.
+                b_mean, b_inv = torch.batch_norm_stats(x, 1e-5)
+                sdy, sdyx, _, _ = torch.batch_norm_backward_reduce(g, x, b_mean, b_inv, mul,
+                                                                   True, True, True)
+                count = torch.full((1,), m, dtype=torch.int32, device=dev)
+                nearest = {
+                    "stats": lambda: torch.batch_norm_stats(x, 1e-5),
+                    "normalize": lambda: torch.batch_norm_elemt(x, mul, add, b_mean, b_inv,
+                                                                1e-5),
+                    "bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+                        g, x, b_mean, b_inv, mul, True, True, True),
+                    "bwd_dx": lambda: torch.batch_norm_backward_elemt(
+                        g, x, b_mean, b_inv, mul, sdy, sdyx, count),
+                }
+                for kname, call in nearest.items():
+                    timings[(name, tag, f"nearest_{kname}")] = cuda_ms(call, iters=20)
+                log(f"[7] {name} (M={m}, C={c}, f32), nearest one-call torch counterparts: "
+                    f"batch_norm_stats {timings[(name, tag, 'nearest_stats')]:.4f} ms, "
+                    f"batch_norm_elemt {timings[(name, tag, 'nearest_normalize')]:.4f} ms (no "
+                    f"ReLU, no residual), batch_norm_backward_reduce "
+                    f"{timings[(name, tag, 'nearest_bwd_reduce')]:.4f} ms (no ReLU mask), "
+                    f"batch_norm_backward_elemt {timings[(name, tag, 'nearest_bwd_dx')]:.4f} ms "
+                    f"(no ReLU mask, no residual gradient); var_mean "
+                    f"{timings[(name, tag, 'library_stats')]:.4f} ms (CUDA events)")
+                del b_mean, b_inv, sdy, sdyx
             per_kernel, _ = profile_kernels(lambda: [kern() for kern, _ in calls.values()],
                                             iters=5)
             line = []
@@ -3398,6 +3462,405 @@ def phase_server(fn, q, thr: float, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 29
+def _yolov1_model():
+    """The full-width 24-conv YOLOv1 (448x448, 20 classes), seeded, on the card."""
+    import torch
+
+    from yolo_tpu_torch.models import create_model
+
+    dev = torch.device("cuda")
+    return create_model("yolov1", C, S, B, device=dev, image_size=SIZE,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def phase_yolov1_slice(card: str) -> int:
+    """The 24-conv model's inference: its grid against the CPU's at batch 2,
+    YOLOInference at batch 16 (one NMS launch, keep masks == plain NMS), the
+    predict and evaluate CLIs with --backbone yolov1, img/s at 1 / 16 / 64.
+    Returns the NMS launches of the batch-16 call."""
+    import torch
+    from PIL import Image
+
+    from yolo_tpu_torch import evaluate, predict
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.inference import YOLOInference
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.ops.decode import Detections, decode_predictions, threshold_mask
+    from yolo_tpu_torch.ops.nms import batched_nms
+
+    dev = torch.device("cuda")
+    engine = YOLOInference(_yolov1_model(), dev, image_size=SIZE)
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    images_np = np.random.default_rng(41).integers(
+        0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    images = torch.from_numpy(images_np).to(dev)
+    log(f"[29] 24-conv YOLOv1, {n_params} parameters (fc1 "
+        f"{engine.model.head[1].weight.numel()}), {SIZE}x{SIZE} fp32, channels_last")
+
+    with torch.inference_mode():
+        raw = engine.model(device_normalize(images).permute(0, 3, 1, 2))
+        all_scores = decode_predictions(raw, S, B, C, float("-inf")).scores
+    cpu_model = copy.deepcopy(engine.model).to("cpu", memory_format=torch.contiguous_format)
+    with torch.inference_mode():
+        ref = cpu_model(device_normalize(torch.from_numpy(images_np[:2])).permute(0, 3, 1, 2))
+    del cpu_model
+    err = float((raw[:2].cpu() - ref).abs().max())
+    tol = RAW_ATOL_REL * float(ref.abs().max()) + RAW_ATOL_ABS
+    log(f"[29] raw (2, 7, 7, 30) grid, GPU vs CPU: max abs err {err:.3g} (tolerance "
+        f"{tol:.3g}; max |ref| {float(ref.abs().max()):.3g})")
+    if not err <= tol:
+        raise AssertionError(f"24-conv: GPU and CPU forwards differ by {err} > {tol}")
+
+    thr = float(all_scores.float().median())
+    thr_cli = float(all_scores.float().quantile(0.9))
+    cuda_nms.LAUNCHES = 0
+    out = engine.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
+    torch.cuda.synchronize()
+    launches = cuda_nms.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"24-conv batch of {SLICE_BATCH}: {launches} NMS launches, not 1")
+    host = Detections(*(t.cpu() for t in out))
+    if not all(bool(torch.isfinite(t).all()) for t in (host.boxes, host.scores)):
+        raise AssertionError("24-conv: non-finite detections")
+    pre = host._replace(valid=threshold_mask(host.scores, thr))
+    if not torch.equal(host.valid, batched_nms(pre, IOU_T).valid):
+        raise AssertionError("24-conv keep masks differ from decode + plain NMS on the CPU")
+    log(f"[29] YOLOInference batch {SLICE_BATCH}: NMS launches {launches}; "
+        f"{int(pre.valid.sum())} candidates, {int(host.valid.sum())} kept; keep masks == "
+        f"decode + plain batched_nms on CPU copies")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_yolov1_") as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "yolo24.pth"
+        torch.save(engine.model.state_dict(), ckpt)
+        img_dir, out_dir = tmp / "images", tmp / "predictions"
+        img_dir.mkdir()
+        r = np.random.default_rng(43)
+        for k in range(3):
+            Image.fromarray(r.integers(0, 256, size=(375, 500, 3), dtype=np.uint8)).save(
+                img_dir / f"image{k}.jpg")
+        cuda_nms.LAUNCHES = 0
+        predict.main(["--checkpoint", str(ckpt), "--image-dir", str(img_dir), "--output",
+                      str(out_dir), "--backbone", "yolov1", "--device", "cuda",
+                      f"--conf-threshold={thr_cli}"])
+        written = sorted(p.name for p in out_dir.iterdir())
+        if written != [f"image{k}_pred.jpg" for k in range(3)] or cuda_nms.LAUNCHES < 1:
+            raise AssertionError(f"predict --backbone yolov1 wrote {written}, "
+                                 f"{cuda_nms.LAUNCHES} NMS launches")
+        log(f"[29] predict --backbone yolov1: wrote {written}; NMS launches "
+            f"{cuda_nms.LAUNCHES}")
+        _write_voc(tmp / "voc")
+        cuda_nms.LAUNCHES = 0
+        res = evaluate.main(["--checkpoint", str(ckpt), "--data-root", str(tmp / "voc"),
+                             "--year", "2007", "--image-set", "trainval", "--batch-size",
+                             "2", "--num-workers", "2", "--device", "cuda", "--backbone",
+                             "yolov1", "--fast-eval"])
+        if len(res) != 77 or not all(np.isfinite(v) for v in res.values()) \
+                or cuda_nms.LAUNCHES != 2:
+            raise AssertionError(f"evaluate --backbone yolov1: {len(res)} keys, NMS launches "
+                                 f"{cuda_nms.LAUNCHES} (want 77 keys, 2 launches)")
+        log(f"[29] evaluate --backbone yolov1 (4 images, batches of 2): 77 finite keys, "
+            f"NMS launches {cuda_nms.LAUNCHES}")
+
+    r = np.random.default_rng(47)
+    for batch in (1, SLICE_BATCH, 64):
+        x = torch.from_numpy(r.integers(0, 256, size=(batch, SIZE, SIZE, 3),
+                                        dtype=np.uint8)).to(dev)
+        ms = cuda_ms(lambda: engine.predict_batch_arrays(x, thr, IOU_T), iters=10)
+        log(f"[29] {card}: 24-conv fp32 inference (uint8 on the card -> forward -> decode "
+            f"-> NMS kernel), batch {batch}: {ms:.3f} ms/batch, {batch * 1000.0 / ms:.1f} "
+            f"img/s (CUDA events, 10 iterations after 3 warm-up)")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 30
+def phase_yolov1_train(card: str) -> None:
+    """24-conv training: three fp32 steps on one fixed batch (finite, falling
+    loss), the train CLI with --backbone yolov1 at 64x64 for an epoch and a
+    resumed second, then step ms, img/s and peak memory."""
+    import torch
+
+    from yolo_tpu_torch import train
+
+    model = _yolov1_model().to(memory_format=torch.channels_last)
+    images_np, targets_np = _slice_batch(SLICE_BATCH)
+    images = torch.from_numpy(images_np).cuda()
+    targets = torch.from_numpy(targets_np).cuda()
+    model.head[3].fixed_mask = torch.rand(
+        (SLICE_BATCH, 4096), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(3)) < 0.5
+    trainer = _trainer(model)
+    losses = [float(trainer.train_step(images, targets)["total"]) for _ in range(3)]
+    if not (all(np.isfinite(losses)) and losses[2] < losses[1] < losses[0]):
+        raise AssertionError(f"24-conv fp32 steps: losses {losses} are not finite and falling")
+    log(f"[30] 24-conv fp32 batch {SLICE_BATCH}, one fixed batch and dropout mask: losses "
+        f"{[round(v, 4) for v in losses]}")
+    model.head[3].fixed_mask = None
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train24_") as tmp:
+        tmp = Path(tmp)
+        _write_voc(tmp / "voc")
+        args = ["--data-root", str(tmp / "voc"), "--device", "cuda", "--backbone", "yolov1",
+                "--batch-size", "2", "--image-size", "64", "--num-workers", "2",
+                "--worker-type", "thread", "--checkpoint-dir", str(tmp / "ck"),
+                "--log-dir", str(tmp / "runs")]
+        train.main([*args, "--epochs", "1"])
+        written = sorted(p.name for p in (tmp / "ck").iterdir())
+        first = torch.load(tmp / "ck" / "yolo_latest.pth", map_location="cpu",
+                           weights_only=True)["scheduler_state_dict"]["last_epoch"]
+        if written != ["yolo_best.pth", "yolo_latest.pth"]:
+            raise AssertionError(f"train --backbone yolov1 wrote {written}")
+        train.main([*args, "--epochs", "2", "--resume", "true"])
+        ck = torch.load(tmp / "ck" / "yolo_latest.pth", map_location="cpu", weights_only=True)
+        steps = {float(v["step"]) for v in ck["optimizer_state_dict"]["state"].values()}
+        if ck["epoch"] != 2 or "head.1.weight" not in ck["model_state_dict"] \
+                or steps != {2.0 * first}:
+            raise AssertionError(f"train --backbone yolov1 --resume: epoch {ck['epoch']}, "
+                                 f"Adam steps {steps}")
+        log(f"[30] train --backbone yolov1 --image-size 64: {written} after {first} steps, "
+            f"--resume true: epoch 2, Adam step {2 * first}")
+        del ck
+
+    r = np.random.default_rng(53)
+    for use_amp, batch in ((False, SLICE_BATCH), (True, 32)):
+        trainer = _trainer(model, use_amp=use_amp)
+        x = torch.from_numpy(r.integers(0, 256, size=(batch, SIZE, SIZE, 3),
+                                        dtype=np.uint8)).cuda()
+        t = torch.from_numpy(_slice_batch(1)[1].repeat(batch, 0)).cuda()
+        step = lambda: trainer.train_step(x, t)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(step, iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[30] {card}: 24-conv train step, {'bf16 autocast' if use_amp else 'fp32'}, "
+            f"batch {batch}: {ms:.2f} ms, {batch * 1000.0 / ms:.1f} img/s (CUDA events, 5 "
+            f"steps after 2 warm-up); peak memory {peak:.2f} GiB")
+        del trainer, x
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 31
+REMAT_BATCH = 8
+# Per fused-BN kernel, launches of one full-width fp32 step with fused_bn
+# "full": 53 BNs; under remat "block" or "stage" the backward re-runs the
+# forward of the 52 BNs inside the bottlenecks (the stem's stays outside).
+REMAT_LAUNCHES = {"none": dict.fromkeys(("stats", "normalize", "bwd_reduce", "bwd_dx"), 53),
+                  "block": {"stats": 105, "normalize": 105, "bwd_reduce": 53, "bwd_dx": 53}}
+REMAT_LAUNCHES["stage"] = REMAT_LAUNCHES["block"]
+
+
+def _remat_step(fused_bn, remat, images, targets, mask) -> tuple:
+    """One fp32 train step of the seeded full-width ResNet50: (loss parts,
+    clipped gradients, BN buffers, fused-BN launches counted from 0)."""
+    import torch
+
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.ops import fused_bn as fb
+
+    dev = torch.device("cuda")
+    model = create_model("resnet", C, S, B, device=dev, image_size=SIZE, fused_bn=fused_bn,
+                         remat=remat, generator=torch.Generator(device=dev).manual_seed(0))
+    model = model.to(memory_format=torch.channels_last)
+    model.head.fc_layers[3].fixed_mask = mask
+    trainer = _trainer(model)
+    for k in fb.LAUNCHES:
+        fb.LAUNCHES[k] = 0
+    parts = trainer.train_step(images, targets)
+    torch.cuda.synchronize()
+    launches = dict(fb.LAUNCHES)
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    buffers = {k: v for k, v in model.state_dict().items()
+               if "running_" in k or "num_batches" in k}
+    return {k: float(v) for k, v in parts.items()}, grads, buffers, launches
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+def phase_remat(card: str) -> dict:
+    """Remat at full-width ResNet50, fp32, batch 8: "block" and "stage" against
+    "none", each with fused_bn False and "full", on one batch and dropout
+    mask, cuDNN deterministic. Returns the fused-BN launches of a "block" step."""
+    import torch
+
+    images_np, targets_np = _slice_batch(REMAT_BATCH)
+    images = torch.from_numpy(images_np).cuda()
+    targets = torch.from_numpy(targets_np).cuda()
+    mask = torch.rand((REMAT_BATCH, 4096), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(5)) < 0.5
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    seen = {}
+    try:
+        for fused in (False, "full"):
+            base = _remat_step(fused, "none", images, targets, mask)
+            again = _remat_step(fused, "none", images, targets, mask)
+            # Two "none" steps set the run-to-run spread the remat steps are held to.
+            spread = max(_rel_l2(again[1][k], g) for k, g in base[1].items())
+            del again
+            for remat in ("none", "block", "stage"):
+                parts, grads, buffers, launches = (
+                    base if remat == "none" else _remat_step(fused, remat, images, targets,
+                                                             mask))
+                want = REMAT_LAUNCHES[remat] if fused else dict.fromkeys(launches, 0)
+                if launches != want:
+                    raise AssertionError(f"remat {remat}, fused_bn={fused!r}: fused-BN launches "
+                                         f"{launches}, expected {want}")
+                seen[(fused, remat)] = launches
+                if remat == "none":
+                    continue
+                for k, v in base[0].items():
+                    if not abs(parts[k] - v) <= 1e-4 * abs(v) + 1e-6:
+                        raise AssertionError(f"remat {remat}: loss part {k} {parts[k]} vs {v}")
+                worst = max((_rel_l2(grads[k], g), k) for k, g in base[1].items())
+                if not worst[0] <= 4 * spread + 1e-5:
+                    raise AssertionError(f"remat {remat}, fused_bn={fused!r}: gradient {worst[1]} "
+                                         f"off by {worst[0]:.3g} (relative L2; none vs none "
+                                         f"{spread:.3g})")
+                n_bn = 0
+                for k, v in base[2].items():
+                    got = buffers[k]
+                    if "num_batches" in k:
+                        n_bn += 1
+                        if int(got) != 1:
+                            raise AssertionError(f"remat {remat}: {k} = {int(got)}, not 1")
+                    elif not bool(((got - v).abs() <= 1e-4 * v.abs() + 1e-5).all()):
+                        raise AssertionError(f"remat {remat}: {k} differs from none's by "
+                                             f"{float((got - v).abs().max())}")
+                log(f"[31] remat={remat!r}, fused_bn={fused!r}, fp32 batch {REMAT_BATCH}: loss "
+                    f"{parts['total']:.6f} (none {base[0]['total']:.6f}); worst gradient "
+                    f"relative L2 vs none {worst[0]:.3g} at {worst[1]} (none vs none "
+                    f"{spread:.3g}); {n_bn} BNs num_batches_tracked 1, running buffers agree; "
+                    f"fused-BN launches {launches}")
+                del grads, buffers
+            del base
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+    from yolo_tpu_torch.models import create_model
+
+    r = np.random.default_rng(59)
+    for batch in (64, 128):
+        x = torch.from_numpy(r.integers(0, 256, size=(batch, SIZE, SIZE, 3),
+                                        dtype=np.uint8)).cuda()
+        t = torch.from_numpy(_slice_batch(1)[1].repeat(batch, 0)).cuda()
+        for remat in ("none", "block", "stage"):
+            model = create_model("resnet", C, S, B, device="cuda", image_size=SIZE,
+                                 remat=remat).to(memory_format=torch.channels_last)
+            trainer = _trainer(model, use_amp=True)
+            step = lambda: trainer.train_step(x, t)  # noqa: E731
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, iters=5, warmup=2)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[31] {card}: ResNet50 train step, bf16 autocast, batch {batch}, "
+                f"remat={remat!r}: {ms:.2f} ms, {batch * 1000.0 / ms:.1f} img/s (CUDA events, "
+                f"5 steps after 3 warm-up); peak memory {peak:.2f} GiB")
+            del trainer, model, step
+            torch.cuda.empty_cache()
+    return seen[("full", "block")]
+
+
+# ---------------------------------------------------------------- phase 32
+def phase_quantized(card: str) -> int:
+    """create_model(quantized=True) at full width: each distinct int8 conv
+    geometry at batch 2 through the kernel ("float" epilogue) against its
+    plain twin, bit for bit; the int8 conv launches of one batch-16 forward
+    (57 for the ResNet, 24 for the 24-conv model); the grid within 5% of
+    the fp32 model's max; ms a batch beside fp32. Returns the ResNet's
+    launches."""
+    import torch
+
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.models.layers import Int8Conv2d, quantize_input
+    from yolo_tpu_torch.serving import cuda_int8
+
+    dev = torch.device("cuda")
+    cl = torch.channels_last
+    r = np.random.default_rng(61)
+    images = torch.from_numpy(r.integers(0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3),
+                                         dtype=np.uint8)).to(dev)
+    x = device_normalize(images).permute(0, 3, 1, 2)
+    out = {}
+    for backbone, want in (("resnet", 57), ("yolov1", 24)):
+        def build(quantized):
+            return create_model(backbone, C, S, B, device=dev, image_size=SIZE,
+                                quantized=quantized,
+                                generator=torch.Generator(device=dev).manual_seed(0)).to(
+                                    memory_format=cl)
+
+        fp, q = build(False), build(True)
+        convs = [m for m in q.modules() if isinstance(m, Int8Conv2d)]
+        if len(convs) != want:
+            raise AssertionError(f"quantized {backbone}: {len(convs)} int8 convs, not {want}")
+        seen = {}
+
+        def hook(mod, inputs, output):
+            xin = inputs[0]
+            key = (tuple(xin.shape[1:]), mod.out_channels, mod.kernel_size[0], mod.stride[0],
+                   mod.padding[0], mod.bias is not None)
+            if key not in seen:  # the LeakyReLU after a conv runs in place: keep copies
+                seen[key] = (mod, xin.clone(), output.clone())
+
+        handles = [m.register_forward_hook(hook) for m in convs]
+        with torch.inference_mode():
+            q(x[:2])
+        for h in handles:
+            h.remove()
+        with torch.inference_mode():
+            for key, (mod, xin, output) in seen.items():
+                wq, s_w, wk, c127 = mod.quantized_weight()
+                xq, s_x = quantize_input(xin, c127)
+                m = s_x * s_w
+                t = mod.bias.float() if mod.bias is not None else torch.zeros_like(s_w)
+                got = cuda_int8.conv_int8(xq, wq, m, t, mod.stride[0], mod.padding[0],
+                                          "float", wk=wk)
+                ref = cuda_int8.conv_int8_reference(xq, wq, m, t, mod.stride[0],
+                                                    mod.padding[0], "float")
+                if not (torch.equal(got, ref) and torch.equal(got.permute(0, 3, 1, 2), output)):
+                    raise AssertionError(f"quantized {backbone} conv {key}: kernel != twin "
+                                         f"(max diff {float((got - ref).abs().max())})")
+        torch.cuda.synchronize()
+        log(f"[32] quantized {backbone}: {len(seen)} distinct int8 conv geometries at batch 2 "
+            f"(input C, H, W; Cout; k; stride; pad; bias), kernel == twin bit for bit: "
+            + ", ".join(str(k) for k in seen))
+        del seen
+
+        cuda_int8.LAUNCHES = 0
+        with torch.inference_mode():
+            yq = q(x)
+        torch.cuda.synchronize()
+        launches = cuda_int8.LAUNCHES
+        if launches != want:
+            raise AssertionError(f"quantized {backbone} forward at batch {SLICE_BATCH}: "
+                                 f"{launches} int8 conv launches, not {want}")
+        with torch.inference_mode():
+            yf = fp(x)
+            rel = float((yq - yf).abs().max() / yf.abs().max())
+        if not (bool(torch.isfinite(yq).all()) and rel < 0.05):
+            raise AssertionError(f"quantized {backbone}: max|q - fp32| / max|fp32| = {rel:.3g}")
+        with torch.inference_mode():
+            q_ms = cuda_ms(lambda: q(x), iters=10)
+            f_ms = cuda_ms(lambda: fp(x), iters=10)
+        log(f"[32] quantized {backbone} forward, batch {SLICE_BATCH}: {launches} int8 conv "
+            f"launches; grid max|q - fp32| / max|fp32| = {rel:.3g} (< 0.05); {card}: "
+            f"{q_ms:.3f} ms/batch quantized vs {f_ms:.3f} fp32 (CUDA events, 10 iterations "
+            f"after 3 warm-up)")
+        out[backbone] = launches
+        del fp, q, yq, yf
+        torch.cuda.empty_cache()
+    return out["resnet"]
+
+
 def int8_conv_times(root: Path) -> None:
     """Device and wrapper ms of the int8 conv at every distinct geometry of
     the engine at batch 16, and their sums over all 58 convs; device ms of
@@ -3590,6 +4053,13 @@ def main() -> None:
     fn, q, thr = timed(27, phase_graphs, card)
     timed(28, phase_server, fn, q, thr, card)
     del fn, q
+    torch.cuda.empty_cache()
+    y24_launches = timed(29, phase_yolov1_slice, card)
+    timed(30, phase_yolov1_train, card)
+    remat_launches = timed(31, phase_remat, card)
+    quant_launches = timed(32, phase_quantized, card)
+    log(f"[29-32] launches: NMS {y24_launches} a 24-conv batch; fused-BN {remat_launches} a "
+        f"remat='block' fused step; int8 conv {quant_launches} a quantized ResNet50 forward")
     log(f"[24] evaluator path launches: NMS {eval_nms} for {len(eval_batches())} metric "
         f"batches; CLI runs (stem, int8 conv, NMS): {eval_launches}")
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))

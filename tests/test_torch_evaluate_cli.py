@@ -128,7 +128,6 @@ def test_int8_calibrated_on_calib_data_then_engine_artifact(setup, capsys):
     (["--mesh-data", "2"], "not yet ported"),
     (["--mesh-model", "2"], "not yet ported"),
     (["--download-data"], "needs a network"),
-    (["--backbone", "yolov1"], "not yet ported"),
 ])
 def test_refusals_exit_with_a_message(tmp_path, flags, message):
     with pytest.raises(SystemExit) as exc:

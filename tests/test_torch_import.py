@@ -72,9 +72,8 @@ def test_package_import_is_lazy():
     assert proc.stdout.strip() == "[]"
 
 
-# Names of the JAX root's __all__ that the port has not ported yet: the
-# 24-conv backbone (with its Backbone alias).
-NOT_YET_PORTED = {"Backbone", "YOLOv1Backbone"}
+# Names of the JAX root's __all__ that the port has not ported yet: none.
+NOT_YET_PORTED = set()
 
 
 def _jax_root_all() -> list:

@@ -21,7 +21,7 @@ from yolo_tpu.convert import convert_reference_state_dict
 from yolo_tpu.models import ResNetBackbone as JResNet
 from yolo_tpu.models import YOLOv1 as JYOLOv1
 from yolo_tpu.models import init_model
-from yolo_tpu_torch.convert import resnet_layout, state_dict_from_jax
+from yolo_tpu_torch.convert import model_layout, state_dict_from_jax
 from yolo_tpu_torch.models import create_model, head_feature_size
 
 STAGES = (1, 1, 1, 1)
@@ -102,7 +102,8 @@ def test_parameter_names_are_the_reference_layout(port_model):
                 "head.conv_layers.6.bias", "head.fc_layers.1.weight",
                 "head.fc_layers.4.bias"):
         assert key in names, key
-    assert resnet_layout(port_model.state_dict()) == (STAGES, SIZE)
+    assert model_layout(port_model.state_dict()) == {
+        "backbone": "resnet", "stage_sizes": STAGES, "image_size": SIZE}
     assert head_feature_size(448, 4) == 7 and head_feature_size(SIZE, 4) == 1
 
 
@@ -118,5 +119,6 @@ def test_seeded_init_is_reproducible_and_torch_default():
     bound = 1.0 / np.sqrt(wa[0].numel())
     assert float(wa.abs().max()) <= bound and float(wa.abs().max()) > 0.9 * bound
     assert not a.training
-    with pytest.raises(NotImplementedError):
-        create_model("yolov1", device="cpu")
+    yolov1 = create_model("yolov1", device="cpu", image_size=SIZE)
+    assert type(yolov1.backbone).__name__ == "YOLOv1Backbone"
+    assert yolov1.head[1].in_features == 1024 and not yolov1.training

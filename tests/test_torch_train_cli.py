@@ -83,7 +83,6 @@ def test_compute_map_writes_best_map_checkpoint(run_dir, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backbone", "yolov1"], ["--remat"], ["--remat", "stage"],
     ["--mesh-data", "2"], ["--mesh-model", "2"], ["--remote"], ["--orbax-checkpoints"],
     ["--resume", "orbax"], ["--download-data"],
 ])

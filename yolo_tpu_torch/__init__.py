@@ -1,8 +1,9 @@
 """yolo_tpu_torch — the YOLOv1 framework ported to PyTorch and CUDA (Hopper).
 
 A second package beside the JAX one (``yolo_tpu``), with the same module
-names. It imports torch and never jax. So far it covers the ResNet50
-model's exact inference (``models``, ``ops.decode``, NMS through the
+names. It imports torch and never jax. So far it covers the models (the
+ResNet50 and 24-conv YOLOv1, remat, the dynamic-int8 variant on
+``csrc/int8_conv.cu``), exact inference (``ops.decode``, NMS through the
 hand-written CUDA kernel ``csrc/nms.cu``), its training (``training``,
 ``data``, the fused-BN kernels ``csrc/fused_bn.cu``) and its int8 serving
 engine (``serving``, the kernels ``csrc/quant_s2d.cu``,
@@ -20,6 +21,7 @@ from importlib import import_module
 from yolo_tpu_torch.version import __version__
 
 _LAZY = {
+    "Backbone": "yolo_tpu_torch.models",
     "BoundingBox": "yolo_tpu_torch.schemas",
     "CombinedVOCDataset": "yolo_tpu_torch.data",
     "Detection": "yolo_tpu_torch.schemas",
@@ -30,6 +32,7 @@ _LAZY = {
     "YOLOInference": "yolo_tpu_torch.inference",
     "YOLOLoss": "yolo_tpu_torch.ops.loss",
     "YOLOv1": "yolo_tpu_torch.models",
+    "YOLOv1Backbone": "yolo_tpu_torch.models",
     "create_model": "yolo_tpu_torch.models",
     "create_voc_datasets": "yolo_tpu_torch.data",
     "evaluate_model": "yolo_tpu_torch.metrics",

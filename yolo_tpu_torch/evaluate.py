@@ -6,8 +6,9 @@ matching a batch at a time), prints the overall, size-based and per-class
 tables and writes ``evaluation_results.txt`` beside the checkpoint.
 
 - ``--checkpoint``: a ``.pth`` (the port's or the reference's) or a JAX
-  ``.ckpt``; the ResNet's depth and input size are read from its weights,
-  and the images are resized to that size.
+  ``.ckpt`` of the ``--backbone`` model (resnet or yolov1); the ResNet's
+  depth and the input size are read from its weights, and the images are
+  resized to that size.
 - ``--device`` defaults to ``cuda`` and fails without a card; ``--device
   cpu`` runs on the CPU.
 - The default is the precise path (decode, NMS and matching in float64 on
@@ -18,11 +19,10 @@ tables and writes ``evaluation_results.txt`` beside the checkpoint.
   (required: the eval split never sets the deployed scales) and quantize,
   then evaluate the int8 serving engine. ``--engine X.npz``: evaluate a
   saved engine artifact as it is (no calibration; the checkpoint still
-  gives the geometry).
+  gives the geometry). Both for the ResNet only, as in JAX.
 
-Refused with a message: ``--backbone yolov1`` and ``--mesh-data`` /
-``--mesh-model`` above 1 (not yet ported); ``--download-data`` needs a
-network.
+Refused with a message: ``--mesh-data`` / ``--mesh-model`` above 1 (not yet
+ported); ``--download-data`` needs a network.
 """
 
 from __future__ import annotations
@@ -70,8 +70,8 @@ def parse_args(argv=None):
 
 
 def _refuse(args) -> None:
-    if args.backbone != "resnet":
-        raise SystemExit(f"--backbone {args.backbone} is not yet ported to yolo_tpu_torch")
+    if (args.int8 or args.engine) and args.backbone != "resnet":
+        raise SystemExit("--int8 supports the resnet flagship only")
     if (args.mesh_data or 1) > 1 or args.mesh_model > 1:
         raise SystemExit("--mesh-data/--mesh-model above 1 is not yet ported to yolo_tpu_torch")
     if args.download_data:
@@ -132,7 +132,6 @@ def main(argv=None):
 
     import torch
 
-    from yolo_tpu_torch.convert import resnet_layout
     from yolo_tpu_torch.data import VOC_CLASSES
     from yolo_tpu_torch.metrics import evaluate_model
     from yolo_tpu_torch.models import create_model
@@ -144,10 +143,12 @@ def main(argv=None):
     ckpt_path = Path(args.checkpoint)
     if not ckpt_path.exists():
         raise SystemExit(f"Checkpoint not found: {ckpt_path}")
-    state_dict, meta = load_model(ckpt_path)
-    stage_sizes, image_size = resnet_layout(state_dict)
-    model = create_model("resnet", num_classes=args.num_classes, device=device,
-                         stage_sizes=stage_sizes, image_size=image_size)
+    try:
+        state_dict, layout, meta = load_model(ckpt_path, args.backbone)
+    except ValueError as exc:
+        raise SystemExit(str(exc))
+    image_size = layout["image_size"]
+    model = create_model(num_classes=args.num_classes, device=device, **layout)
     model.load_state_dict(state_dict)
     del state_dict
     if device.type == "cuda":

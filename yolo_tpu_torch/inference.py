@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from yolo_tpu_torch.data.transforms import device_normalize, eval_transform
+from yolo_tpu_torch.models.backbones import ResNetBackbone
 from yolo_tpu_torch.ops.boxes import EPSILON
 from yolo_tpu_torch.ops.cuda_nms import nms
 from yolo_tpu_torch.ops.decode import Detections, decode_predictions
@@ -60,8 +61,9 @@ class YOLOInference:
             "cpu"). The model is moved there, put in eval mode, and on CUDA
             kept in channels_last memory.
         image_size: input resolution the model was built for (448).
-        optimize: None (the exact float32 forward) or "int8" (the int8
-            serving engine, serving/).
+        optimize: None (the exact float32 forward; a ``quantized=True``
+            model runs its dynamic-int8 convs there) or "int8" (the int8
+            serving engine, serving/; the ResNet model only, as in JAX).
         calibration: optional iterable of normalized (n, H, W, 3) image
             batches for the int8 activation scales. Without it the engine
             calibrates on the first batch it predicts (its real rows only).
@@ -88,6 +90,9 @@ class YOLOInference:
             raise ValueError(f"optimize must be None or 'int8', got {optimize!r}")
         if engine_artifact is not None and optimize != "int8":
             raise ValueError("engine_artifact requires optimize='int8'")
+        if optimize == "int8" and not isinstance(getattr(model, "backbone", None),
+                                                 ResNetBackbone):
+            raise ValueError("optimize='int8' supports the resnet flagship only")
         if wino:
             from yolo_tpu_torch.serving.winograd import check_points
 

@@ -7,20 +7,31 @@ eps 1e-5 and momentum 0.1. What stays is PyTorch's default initialisation
 (uniform +-1/sqrt(fan_in) for conv and linear weights and biases), drawn from
 an explicit ``torch.Generator`` so that a seed fixes the weights.
 
-Two modules are the port's own: :class:`FusedBatchNormAct`, the train-mode
+The port's own modules: :class:`FusedBatchNormAct`, the train-mode
 BN(+residual)+ReLU through the CUDA kernels of ``ops/fused_bn.py`` (JAX
-``FusedBatchNormAct``, layers.py:178-265), and :class:`Dropout`, whose mask
-comes from its own ``torch.Generator`` (or is handed to it), not from the
-global RNG.
+``FusedBatchNormAct``, layers.py:178-265); :class:`BatchNorm2d`, torch's
+BatchNorm; :class:`Dropout`, whose mask comes from its own
+``torch.Generator`` (or is handed to it), not from the global RNG; and
+:class:`Int8Conv2d`, the dynamic-int8 conv (JAX ``_Int8ConvCore``,
+layers.py:88-139) on the int8 conv kernel ``csrc/int8_conv.cu``.
 
-The dynamic-int8 conv of the JAX file is not ported.
+Recomputation (``remat``, ``models/backbones.py``) re-runs a train-mode
+forward for the backward pass. Both BN modules update their running
+statistics in place, so they skip the update while :func:`recomputing` is
+true: the statistics move once a step, as flax writes ``batch_stats`` once.
+:func:`checkpoint` is ``torch.utils.checkpoint.checkpoint`` with that flag
+set in its recompute context.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 from torch.nn.utils import skip_init
 
@@ -28,15 +39,45 @@ from yolo_tpu_torch.ops import fused_bn
 
 LEAKY_SLOPE = 0.1
 
+_RECOMPUTING = contextvars.ContextVar("yolo_tpu_torch_recomputing", default=False)
+
+
+def recomputing() -> bool:
+    """True inside a forward that :func:`checkpoint` re-runs for the backward pass."""
+    return _RECOMPUTING.get()
+
+
+@contextlib.contextmanager
+def _recompute_context():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward pass.
+
+    Non-reentrant ``torch.utils.checkpoint`` (the counterpart of flax's
+    ``nn.remat``). The recomputed forward runs with :func:`recomputing`
+    true, so BN leaves its running statistics alone there. The RNG state is
+    not restored: the checkpointed blocks draw no random numbers.
+    """
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recompute_context()))
+
 
 def conv(
     cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
-    bias: bool = True, *, device: torch.device | str,
+    bias: bool = True, *, device: torch.device | str, quantized: bool = False,
 ) -> nn.Conv2d:
-    """Conv2d with symmetric padding, parameters left for :func:`init_weights_`."""
+    """Conv2d with symmetric padding, parameters left for :func:`init_weights_`;
+    ``quantized`` makes it an :class:`Int8Conv2d` (the same parameters)."""
     return skip_init(
-        nn.Conv2d, cin, cout, kernel, stride=stride, padding=padding, bias=bias,
-        device=device,
+        Int8Conv2d if quantized else nn.Conv2d, cin, cout, kernel, stride=stride,
+        padding=padding, bias=bias, device=device,
     )
 
 
@@ -45,7 +86,23 @@ def linear(fin: int, fout: int, *, device: torch.device | str) -> nn.Linear:
 
 
 def batch_norm(c: int, *, device: torch.device | str) -> nn.BatchNorm2d:
-    return skip_init(nn.BatchNorm2d, c, eps=1e-5, momentum=0.1, device=device)
+    return skip_init(BatchNorm2d, c, eps=1e-5, momentum=0.1, device=device)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that leaves its running statistics alone in a
+    recomputed forward (:func:`recomputing`).
+
+    There it normalizes with the batch statistics as before, into copies
+    of the running buffers that are thrown away, so torch takes the same
+    kernel path and computes the same values as in the first forward.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and recomputing():
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
+        return super().forward(x)
 
 
 def leaky_relu() -> nn.LeakyReLU:
@@ -122,7 +179,7 @@ class FusedBatchNormAct(nn.BatchNorm2d):
             if residual is not None:
                 y = y + residual
             out = torch.relu(y) if self.relu else y
-        if self.training:
+        if self.training and not recomputing():
             count = x.numel() // x.shape[1]
             with torch.no_grad():
                 m = self.momentum
@@ -167,3 +224,69 @@ class Dropout(nn.Module):
             mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
         return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype,
                                                                     device=x.device))
+
+
+class Int8Conv2d(nn.Conv2d):
+    """Dynamic-int8 conv for inference (JAX ``_Int8ConvCore``, layers.py:88-139).
+
+    An ``nn.Conv2d`` with the same ``weight`` and ``bias``, so float32
+    state dicts load as they are. Each call computes, in JAX's op order:
+
+    - per output channel ``s_w = max(max|W| / 127, 1e-8)`` and
+      ``w_q = clip(round(W / s_w), -127, 127)`` (cached while the weight
+      is unchanged, with its packed form for the kernel);
+    - one per-tensor ``s_x = max(max|x| / 127, 1e-8)`` over the whole batch
+      and ``x_q = clip(round(x / s_x), -127, 127)``;
+    - the int8 conv of ``x_q`` and ``w_q`` with an int32 accumulator, and
+      ``y = float(acc) * (s_x * s_w) + bias`` (+0 without a bias).
+
+    The conv and its epilogue are one call of ``serving.cuda_int8.conv_int8``
+    in mode ``"float"``: the kernel ``csrc/int8_conv.cu`` on CUDA tensors,
+    its plain twin ``conv_int8_reference`` on CPU tensors. The scales stay
+    on the device; every division is by a 0-dim device tensor, which torch
+    computes as a true division (a host scalar becomes a multiply by its
+    reciprocal on CUDA). Activations go NCHW -> NHWC and back as views where
+    ``x`` is channels_last. Inference only: a train-mode forward raises.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Imported here: the serving package's __init__ loads the HTTP server.
+        from yolo_tpu_torch.serving import cuda_int8
+
+        if self.training:
+            raise RuntimeError("Int8Conv2d is inference only (quantized=True); call .eval()")
+        wq, s_w, wk, c127 = self.quantized_weight()
+        xq, s_x = quantize_input(x, c127)
+        t = self.bias if self.bias is not None else torch.zeros_like(s_w)
+        y = cuda_int8.conv_int8(xq, wq, s_x * s_w, t, self.stride[0], self.padding[0],
+                                "float", wk=wk)
+        return y.permute(0, 3, 1, 2).to(x.dtype)
+
+    @torch.no_grad()
+    def quantized_weight(self):
+        """(w_q HWIO int8, s_w (Cout,) float32, the kernel's packed w_q or
+        None on the CPU, the 0-dim float32 127 on the weight's device)."""
+        from yolo_tpu_torch.serving import cuda_int8
+
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device, w.dtype)
+        cache = getattr(self, "_int8_cache", None)
+        if cache is None or cache[0] != key:
+            c127 = torch.full((), 127.0, dtype=torch.float32, device=w.device)
+            wf = w.float()
+            s_w = torch.clamp(wf.abs().amax(dim=(1, 2, 3)) / c127, min=1e-8)
+            wq = torch.round(wf / s_w.reshape(-1, 1, 1, 1)).clamp(-127, 127).to(torch.int8)
+            wq = wq.permute(2, 3, 1, 0).contiguous()
+            wk = cuda_int8.pack_weight(wq) if w.device.type == "cuda" else None
+            cache = (key, (wq, s_w, wk, c127))
+            self._int8_cache = cache
+        return cache[1]
+
+
+def quantize_input(x: torch.Tensor, c127: torch.Tensor):
+    """(x_q NHWC int8 contiguous, s_x 0-dim float32) of NCHW ``x``, one
+    per-tensor scale over the batch (JAX ``_Int8ConvCore``'s order)."""
+    xh = x.permute(0, 2, 3, 1).float()
+    s_x = torch.clamp(xh.abs().amax() / c127, min=1e-8)
+    xq = torch.round(xh / s_x).clamp(-127, 127).to(torch.int8)
+    return xq.contiguous(), s_x

@@ -1,38 +1,72 @@
 """The YOLOv1 model: backbone + detection head, and its factory.
 
-Port of yolo_tpu/models/yolo.py for the ResNet50 configuration. The forward
-takes NCHW images and returns the (N, S, S, B*5+C) grid. Parameter names are
-the reference's (``backbone.extractor.*``, ``head.conv_layers.*``,
-``head.fc_layers.*``), so a reference ``.pth`` state dict loads as it is.
+Port of yolo_tpu/models/yolo.py. The forward takes NCHW images and returns
+the (N, S, S, B*5+C) grid. The head follows the backbone as in JAX's
+dispatch (yolo.py:39-69; reference src/yolo/models.py:179-276):
+
+- no backbone given        -> ``YOLOv1Backbone`` + ``SimpleHead``
+- ``YOLOv1Backbone``       -> ``SimpleHead`` (Flatten -> 4096 -> out)
+- ``ResNetBackbone``       -> ``DetectionHead`` (2048 in)
+- custom backbone, no head -> ``ValueError``
+
+A 2-D head output is reshaped to the grid. Parameter names are the
+reference's (``backbone.extractor.*`` / ``backbone.features.*``,
+``head.conv_layers.*`` / ``head.fc_layers.*`` or ``head.{1,4}.*``), so a
+reference ``.pth`` state dict loads as it is.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from yolo_tpu_torch.models.backbones import ResNetBackbone
-from yolo_tpu_torch.models.heads import DetectionHead
+from yolo_tpu_torch.models.backbones import (ResNetBackbone, YOLOv1Backbone, fused_mode,
+                                             remat_mode, yolov1_feature_size)
+from yolo_tpu_torch.models.heads import DetectionHead, SimpleHead
 from yolo_tpu_torch.models.layers import init_weights_
 
 
 class YOLOv1(nn.Module):
-    """YOLOv1 detector: ``backbone`` features -> ``head`` grid."""
+    """YOLOv1 detector: ``backbone`` features -> ``head`` grid.
 
-    def __init__(self, backbone: nn.Module, head: DetectionHead):
+    The submodules are built with their parameters uninitialised
+    (``create_model`` initialises them). ``image_size`` fixes the width of
+    the default head's fc1; ``quantized`` builds the default backbone's and
+    the ResNet head's convs as dynamic-int8 ``Int8Conv2d``s.
+    """
+
+    def __init__(self, num_classes: int = 20, S: int = 7, B: int = 2,
+                 backbone: Optional[nn.Module] = None, head: Optional[nn.Module] = None,
+                 *, device: torch.device | str, image_size: int = 448,
+                 quantized: bool = False):
         super().__init__()
+        if backbone is None:
+            backbone = YOLOv1Backbone(device=device, quantized=quantized)
+        if head is None:
+            if isinstance(backbone, YOLOv1Backbone):
+                head = SimpleHead(num_classes, S, B, yolov1_feature_size(image_size),
+                                  backbone.out_channels, device=device)
+            elif isinstance(backbone, ResNetBackbone):
+                head = DetectionHead(backbone.out_channels, num_classes, S, B,
+                                     head_feature_size(image_size, backbone.num_stages),
+                                     device=device, quantized=quantized)
+            else:
+                raise ValueError("Must provide detection_head for custom backbone types")
         self.backbone = backbone
         self.head = head
-        self.num_classes, self.S, self.B = head.num_classes, head.S, head.B
+        self.num_classes, self.S, self.B = num_classes, S, B
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.backbone(x))
+        out = self.head(self.backbone(x))
+        if out.dim() == 2:
+            out = out.reshape(-1, self.S, self.S, self.B * 5 + self.num_classes)
+        return out
 
 
 def head_feature_size(image_size: int, num_stages: int) -> int:
-    """Side of the head's map after its stride-2 conv.
+    """Side of the ResNet head's map after its stride-2 conv.
 
     Every stride-2 layer maps h -> (h - 1) // 2 + 1: the stem conv, the
     max pool, the first block of each stage after the first, and the head's
@@ -55,26 +89,34 @@ def create_model(
     stage_sizes: Sequence[int] = (3, 4, 6, 3),
     image_size: int = 448,
     fused_bn: bool | str = False,
+    remat: bool | str = False,
+    quantized: bool = False,
 ) -> YOLOv1:
     """Build a YOLOv1 on ``device`` with PyTorch's default init, in eval mode.
 
-    ``generator`` (on ``device``) draws the weights; None means a generator
-    seeded with 0. ``stage_sizes`` cuts the ResNet's depth (tests use
-    (1, 1, 1, 1)); ``image_size`` fixes the head's fc1 width; ``fused_bn``
-    (False, True/"stats" or "full") selects the backbone's train-mode BN
-    path. ``model.train()`` / ``model.eval()`` stand for JAX's ``train=``.
+    ``backbone``: "resnet" (the flagship) or "yolov1" (the 24-conv stack
+    and ``SimpleHead``). ``generator`` (on ``device``) draws the weights;
+    None means a generator seeded with 0. ``image_size`` fixes the head's
+    fc1 width. ResNet only: ``stage_sizes`` cuts its depth (tests use
+    (1, 1, 1, 1)); ``fused_bn`` (False, True/"stats" or "full") selects the
+    train-mode BN path; ``remat`` (False/"none", True/"block", "stage")
+    recomputes activations in the backward pass, as JAX's train.py builds
+    it for the ResNet only. ``quantized=True`` is the dynamic-int8
+    inference variant: every conv runs the int8 conv kernel (the FC layers
+    stay float), the parameters are the float model's.
+    ``model.train()`` / ``model.eval()`` stand for JAX's ``train=``.
     """
-    if backbone != "resnet":
-        raise NotImplementedError(
-            f"backbone {backbone!r} is not ported yet; only 'resnet' is"
-        )
-    bb = ResNetBackbone(stage_sizes, device=device, fused_bn=fused_bn)
-    head = DetectionHead(
-        bb.out_channels, num_classes, S, B,
-        feature_size=head_feature_size(image_size, len(stage_sizes)),
-        device=device,
-    )
-    model = YOLOv1(bb, head)
+    if backbone == "resnet":
+        bb: nn.Module = ResNetBackbone(stage_sizes, device=device, fused_bn=fused_bn,
+                                       quantized=quantized, remat=remat)
+    elif backbone == "yolov1":
+        if remat_mode(remat) != "none" or fused_mode(fused_bn) is not None:
+            raise ValueError("remat and fused_bn apply to the resnet backbone only")
+        bb = YOLOv1Backbone(device=device, quantized=quantized)
+    else:
+        raise ValueError(f"Unknown backbone '{backbone}'")
+    model = YOLOv1(num_classes, S, B, bb, device=device, image_size=image_size,
+                   quantized=quantized)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init_weights_(model, generator)

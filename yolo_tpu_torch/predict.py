@@ -4,11 +4,12 @@ The flags of the JAX package's predict.py (reference src/predict.py:188-293).
 Single-image or directory prediction with annotated ``{stem}_pred{suffix}``
 outputs and a console summary. ``--device`` defaults to ``cuda`` and fails
 when CUDA is absent; ``--device cpu`` runs the plain torch path. The
-checkpoint is a reference ``.pth`` or a JAX ``.ckpt``; the ResNet's depth and
-input size are read from its weights. ``--int8`` serves with the int8 engine
-(calibrated on the first chunk of real images), ``--engine`` loads a saved
-engine artifact (the JAX package's or the port's), ``--save-engine`` freezes
-the calibrated engine after serving.
+checkpoint is a reference ``.pth`` or a JAX ``.ckpt`` of either model; its
+backbone must be ``--backbone``'s, and the ResNet's depth and the input size
+are read from its weights. ``--int8`` serves with the int8 engine
+(calibrated on the first chunk of real images; the ResNet only, as in JAX),
+``--engine`` loads a saved engine artifact (the JAX package's or the
+port's), ``--save-engine`` freezes the calibrated engine after serving.
 """
 
 from __future__ import annotations
@@ -55,25 +56,24 @@ def parse_args(argv=None):
 def load_engine(args):
     import torch
 
-    from yolo_tpu_torch.convert import resnet_layout
     from yolo_tpu_torch.inference import YOLOInference
     from yolo_tpu_torch.models import create_model
     from yolo_tpu_torch.training.checkpoints import load_model
 
-    if args.backbone != "resnet":
-        raise SystemExit(f"backbone {args.backbone!r} is not yet ported")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: CUDA is not available")
     if not Path(args.checkpoint).exists():
         raise SystemExit(f"Checkpoint not found: {args.checkpoint}")
-    state_dict = load_model(args.checkpoint)[0]
-    stage_sizes, image_size = resnet_layout(state_dict)
-    model = create_model(
-        args.backbone, num_classes=args.num_classes, device=device,
-        stage_sizes=stage_sizes, image_size=image_size,
-    )
+    if args.int8 and args.backbone != "resnet":
+        raise SystemExit("--int8 supports the resnet flagship only")
+    try:
+        state_dict, layout, _ = load_model(args.checkpoint, args.backbone)
+    except ValueError as exc:
+        raise SystemExit(str(exc))
+    model = create_model(num_classes=args.num_classes, device=device, **layout)
     model.load_state_dict(state_dict)
+    image_size = layout["image_size"]
     return YOLOInference(model, device, image_size=image_size,
                          optimize="int8" if args.int8 else None, engine_artifact=args.engine)
 

@@ -91,16 +91,17 @@ def build_predict(args):
         q, impl, meta = load_artifact(args.engine, None, device)
         fn = make_int8_engine_fn(meta["S"], meta["B"], meta["num_classes"], impl=impl)
     else:
-        from yolo_tpu_torch.convert import resnet_layout
         from yolo_tpu_torch.models import create_model
         from yolo_tpu_torch.training.checkpoints import load_model
 
         if not Path(args.checkpoint).exists():
             raise SystemExit(f"Checkpoint not found: {args.checkpoint}")
-        state_dict = load_model(args.checkpoint)[0]
-        stage_sizes, _ = resnet_layout(state_dict)
+        try:
+            state_dict, layout, _ = load_model(args.checkpoint, args.backbone)
+        except ValueError as exc:
+            raise SystemExit(str(exc))
         model = create_model(args.backbone, num_classes=args.num_classes, device=device,
-                             stage_sizes=stage_sizes, image_size=args.image_size)
+                             stage_sizes=layout["stage_sizes"], image_size=args.image_size)
         model.load_state_dict(state_dict)
         calib = [torch.from_numpy(b).to(device) for b in _calibration_batches(args)]
         fn, q = build_int8_predict(model, calib, impl=default_impl())

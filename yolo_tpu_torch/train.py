@@ -10,12 +10,15 @@ or a JAX ``.ckpt`` (weights, BN statistics, Adam moments and step).
 
 ``--compute-map`` adds the mAP suite to the validation pass every
 ``--map-frequency`` epochs (and the last) and keeps ``yolo_best_map.pth``
-by mAP50:95.
+by mAP50:95. ``--backbone yolov1`` trains the 24-conv model; ``--remat``
+(``block``, the bare flag, or ``stage``) recomputes the ResNet's
+activations in the backward pass, with the BN running statistics updated
+once a step.
 
-Not ported yet, and refused with a message: ``--backbone yolov1``,
-``--remat`` other than ``none``, ``--mesh-data`` or
+Not ported yet, and refused with a message: ``--mesh-data`` or
 ``--mesh-model`` above 1, ``--remote``, ``--orbax-checkpoints`` and
-``--resume orbax``; ``--download-data`` needs a network.
+``--resume orbax``; ``--download-data`` needs a network. ``--remat`` and
+``--pretrained-backbone`` need ``--backbone resnet``.
 """
 
 from __future__ import annotations
@@ -69,15 +72,18 @@ def parse_args(argv=None):
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the first training epoch to DIR")
     p.add_argument("--remat", nargs="?", const="block", default="none",
-                   choices=["none", "block", "stage"], help="not yet ported")
+                   choices=["none", "block", "stage"],
+                   help="recompute the ResNet's activations in the backward pass: 'block' "
+                        "(bare --remat) around each bottleneck, 'stage' around each stage")
     p.add_argument("--orbax-checkpoints", action="store_true", help="not yet ported")
     return p.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
+    if args.backbone != "resnet" and (args.remat != "none" or args.pretrained_backbone):
+        raise SystemExit("--remat and --pretrained-backbone (a torchvision resnet50) need "
+                         "--backbone resnet")
     unported = [
-        (args.backbone != "resnet", f"--backbone {args.backbone}"),
-        (args.remat != "none", f"--remat {args.remat}"),
         ((args.mesh_data or 1) > 1 or args.mesh_model > 1, "--mesh-data/--mesh-model above 1"),
         (args.remote, "--remote"),
         (args.orbax_checkpoints, "--orbax-checkpoints"),
@@ -98,6 +104,7 @@ def main(argv=None):
 
     from yolo_tpu_torch.data import DataLoader, create_voc_datasets
     from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.models.layers import Dropout
     from yolo_tpu_torch.training.checkpoints import find_resume_path, resume
     from yolo_tpu_torch.training.logging import (
         MetricWriter,
@@ -144,9 +151,11 @@ def main(argv=None):
                             worker_type=args.worker_type)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    model = create_model("resnet", args.num_classes, 7, 2, device=device, generator=generator,
-                         image_size=args.image_size)
-    model.head.fc_layers[3].manual_seed(args.seed)
+    model = create_model(args.backbone, args.num_classes, 7, 2, device=device,
+                         generator=generator, image_size=args.image_size, remat=args.remat)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.manual_seed(args.seed)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 

@@ -73,9 +73,18 @@ def load_variables(path: str | Path) -> Dict[str, Any]:
     return _variables(load_checkpoint(path))
 
 
-def load_model(path: str | Path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """(the port's state dict, the payload's epoch / val_loss / mAP keys) from
-    a ``.pth`` (reference names) or a JAX ``.ckpt``, read once."""
+def load_model(path: str | Path, backbone: Optional[str] = None
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any], Dict[str, Any]]:
+    """(the port's state dict, ``create_model``'s layout keywords, the
+    payload's epoch / val_loss / mAP keys) from a ``.pth`` (reference names)
+    or a JAX ``.ckpt`` of either model, read once.
+
+    The layout is ``convert.model_layout``'s: the backbone, the image size
+    and the ResNet's stage sizes. ``backbone`` given, a checkpoint of the
+    other one raises ``ValueError``.
+    """
+    from yolo_tpu_torch.convert import model_layout
+
     path = Path(path)
     if path.suffix == ".pth":
         payload = torch.load(str(path), map_location="cpu", weights_only=True)
@@ -85,8 +94,12 @@ def load_model(path: str | Path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any
 
         payload = load_checkpoint(path)
         state_dict = state_dict_from_jax(_variables(payload))
+    layout = model_layout(state_dict)
+    if backbone is not None and layout["backbone"] != backbone:
+        raise ValueError(f"{path} holds a {layout['backbone']} model, not {backbone}; pass "
+                         f"--backbone {layout['backbone']}")
     meta = {k: payload[k] for k in ("epoch", "val_loss", *_MAP_KEYS) if k in payload}
-    return state_dict, meta
+    return state_dict, layout, meta
 
 
 # ------------------------------------------------------------------ saving
