@@ -232,7 +232,27 @@ on the int8 conv kernel). Phases:
    the module's output; one forward at batch 16 launches the kernel 57
    (ResNet50: 53 backbone + 4 head convs) or 24 times (counts zeroed just
    before); the grid within 5% of the fp32 model's max |grid|; ms a batch
-   beside the fp32 model's.
+   beside the fp32 model's;
+33. parallelism, training, in spawned ranks (ResNet50, 448x448, fp32, TF32
+   off, deterministic cuDNN, batch 16, one dropout mask): (a) an NCCL world
+   of 1 with DistributedDataParallel: loss, every gradient and BN buffer
+   bit for bit against the plain Trainer, both step times; (b) a gloo world
+   of 2 on the card, mesh (2, 1), 8 images a rank, synchronized BN: loss
+   rtol 1e-5 against one process at 16, each step's gradients held to a
+   float64 step (the synchronized step within 2x one process's distance),
+   running stats within 1e-5 of max |value|, each rank 53 launches of each
+   fused-BN kernel and 106 BN all-reduces; (c) a gloo world of 2, mesh
+   (1, 2): fc1 (2048, 50176) a rank, the grid within 1e-5 of the unsharded
+   model's max, the norm of the same gradients from the shards and
+   gathered within 1e-6, the sharded step's norm within 2x one process's
+   distance to float64's, peak memory a rank beside one process's;
+34. a gloo (2, 1) world: make_sharded_int8_engine_fn at global batch 32,
+   each rank's detections == the default engine's on its 16 images, 1 / 58
+   / 1 launches a rank; evaluate_model(mesh=...) fast path with a detecting
+   model: 77 keys == one process at batch 16, one NMS launch a rank a batch;
+35. torchrun --standalone --nproc-per-node 2 (gloo on the one card):
+   train --mesh-data 2 --orbax-checkpoints, --resume orbax, train
+   --mesh-model 2, evaluate --mesh-data 2, then predict on the .pth.
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
@@ -976,8 +996,9 @@ def _model(fused_bn, state_dict=None):
     return model.to(memory_format=torch.channels_last)
 
 
-def _float64_grads(model, images, targets) -> dict:
-    """Gradients of one float64 train-mode step, clipped as the Trainer clips."""
+def _float64_step(model, images, targets) -> float:
+    """One float64 train-mode forward and backward, clipped as the Trainer
+    clips; returns the gradient norm before clipping."""
     import torch
 
     from yolo_tpu_torch.data.transforms import device_normalize
@@ -988,7 +1009,12 @@ def _float64_grads(model, images, targets) -> dict:
     x = x.contiguous(memory_format=torch.channels_last)
     total, _ = yolo_loss(model(x), targets.double(), S=S, B=B, C=C)
     total.backward()
-    torch.nn.utils.clip_grad_norm_(list(model.parameters()), 10.0)
+    return float(torch.nn.utils.clip_grad_norm_(list(model.parameters()), 10.0))
+
+
+def _float64_grads(model, images, targets) -> dict:
+    """Gradients of one float64 train-mode step, clipped as the Trainer clips."""
+    _float64_step(model, images, targets)
     return {k: p.grad for k, p in model.named_parameters() if k in GRAD_NAMES}
 
 
@@ -3860,6 +3886,497 @@ def phase_quantized(card: str) -> int:
         torch.cuda.empty_cache()
     return out["resnet"]
 
+# ---------------------------------------------------------------- phases 33-35
+# Each rank is a process of its own (torch's idiom); the ranks of a world
+# share the one card, so every time they print is two ranks time-sharing one
+# card over gloo, not a scaling figure. NCCL refuses two ranks on one
+# device: the worlds of two run gloo, and phase 33 (a) runs NCCL at a world
+# of one.
+PAR_BATCH = 16
+
+
+class _Batches:
+    """A loader of fixed (images, targets) batches with its batch size."""
+
+    def __init__(self, batches, batch_size: int):
+        self.batches, self.batch_size = batches, batch_size
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+def _rank_main(rank: int, world: int, workdir: str, task: str, n_data: int, n_model: int):
+    """One rank of a world on the card: join it, make the mesh, run ``task``
+    and save its result as ``rank{r}.pt`` in ``workdir``."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+
+    from yolo_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    device = initialize_distributed("cuda", init_method=f"file://{workdir}/store",
+                                    world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(n_data, n_model, "cuda")
+        out = PAR_TASKS[task](mesh, device)
+        out["backend"] = dist.get_backend()
+        torch.save(out, Path(workdir) / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _world(task: str, n_data: int, n_model: int, timeout: float = 600.0) -> list:
+    """Run ``task`` on ``n_data * n_model`` spawned ranks; their results in rank order."""
+    import torch
+    import torch.multiprocessing as mp
+
+    world = n_data * n_model
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
+        ctx = mp.start_processes(_rank_main, args=(world, tmp, task, n_data, n_model),
+                                 nprocs=world, join=False, start_method="spawn")
+        t0 = time.perf_counter()
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > timeout:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"{task}: the world of {world} ran over {timeout} s")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def _par_inputs():
+    """The global batch, its targets and its dropout mask, on the card."""
+    import torch
+
+    images_np, targets_np = _slice_batch(PAR_BATCH)
+    mask = torch.rand((PAR_BATCH, 4096), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(3)) < 0.5
+    return torch.from_numpy(images_np).cuda(), torch.from_numpy(targets_np).cuda(), mask
+
+
+def _par_trainer(model, mesh=None):
+    import torch
+
+    from yolo_tpu_torch.training.optim import make_optimizer
+    from yolo_tpu_torch.training.trainer import Trainer
+
+    optimizer, schedule = make_optimizer(model, 1e-4, 5e-4, milestones_steps=[])
+    return Trainer(model, optimizer, schedule, device=torch.device("cuda"), mesh=mesh)
+
+
+def _step(trainer, images, targets, mask):
+    """One train step on the global batch and dropout mask: (loss parts, ms)."""
+    import torch
+
+    trainer.model.head.fc_layers[3].fixed_mask = mask
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = trainer.train_step(images, targets)
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in parts.items()}, (time.perf_counter() - t0) * 1e3
+
+
+def _steady_ms(trainer, images, targets, mask, steps: int = 3) -> float:
+    """Mean ms of ``steps`` more steps by CUDA events (after the compared one)."""
+    trainer.model.head.fc_layers[3].fixed_mask = mask
+    return cuda_ms(lambda: trainer.train_step(images, targets), iters=steps, warmup=1)
+
+
+def _task_ddp_one(mesh, device) -> dict:
+    """(a) NCCL world of 1: the DDP step against the plain Trainer's, bit for bit."""
+    import torch
+
+    images, targets, mask = _par_inputs()
+    plain = _par_trainer(_model("full"))
+    p_parts, _ = _step(plain, images, targets, mask)
+    p_grads = {k: p.grad.clone() for k, p in plain.model.named_parameters()}
+    p_bufs = {k: v.clone() for k, v in plain.model.state_dict().items()
+              if "running_" in k or "num_batches" in k}
+    p_ms = _steady_ms(plain, images, targets, mask)
+    del plain
+    torch.cuda.empty_cache()
+    ddp = _par_trainer(_model("full"), mesh)
+    d_parts, _ = _step(ddp, images, targets, mask)
+    same_grads = all(torch.equal(p.grad, p_grads[k]) for k, p in ddp.model.named_parameters())
+    same_bufs = all(torch.equal(v, p_bufs[k]) for k, v in ddp.model.state_dict().items()
+                    if k in p_bufs)
+    d_ms = _steady_ms(ddp, images, targets, mask)
+    return {"parts": (p_parts, d_parts), "grads_equal": same_grads, "buffers_equal": same_bufs,
+            "ms": (p_ms, d_ms), "n_grads": len(p_grads), "n_buffers": len(p_bufs)}
+
+
+def _task_dp_two(mesh, device) -> dict:
+    """(b) gloo (2, 1): the synchronized step; rank 0 then runs the
+    single-process step on the global batch, and the same step in float64,
+    and compares."""
+    import torch
+    import torch.distributed as dist
+
+    from yolo_tpu_torch.ops import fused_bn as fb
+
+    images, targets, mask = _par_inputs()
+    trainer = _par_trainer(_model("full"), mesh)
+    for k in fb.LAUNCHES:
+        fb.LAUNCHES[k] = 0
+    fb.ALL_REDUCES = 0
+    parts, ms = _step(trainer, images, targets, mask)
+    out = {"parts": parts, "ms": ms, "launches": dict(fb.LAUNCHES),
+           "all_reduces": fb.ALL_REDUCES,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    grads = {k: p.grad.clone() for k, p in trainer.model.named_parameters()}
+    bufs = {k: v.clone() for k, v in trainer.model.state_dict().items() if "running_" in k}
+    del trainer
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        ref = _par_trainer(_model("full"))
+        ref_parts, ref_ms = _step(ref, images, targets, mask)
+        one = {k: p.grad.clone() for k, p in ref.model.named_parameters()}
+        sd = ref.model.state_dict()
+        buf_err = {k: float((v - sd[k]).abs().max() / sd[k].abs().max()) for k, v in bufs.items()}
+        del ref, sd
+        torch.cuda.empty_cache()
+        ref64 = _model(False).double()
+        ref64.head.fc_layers[3].fixed_mask = mask
+        _float64_grads(ref64, images, targets)
+        g64 = {k: p.grad for k, p in ref64.named_parameters()}
+        rel = {k: _rel_l2(grads[k], one[k]) for k in one}
+        # Each step's distance to float64, parameter by parameter: the
+        # synchronized step must be as close as the one-process step.
+        to64 = {k: (_rel_l2(grads[k], g), _rel_l2(one[k], g)) for k, g in g64.items()}
+        worst = max(to64, key=lambda k: to64[k][0] - 2 * to64[k][1])
+        out.update(ref_parts=ref_parts, ref_ms=ref_ms, grad_rel_l2=max(rel.values()),
+                   worst_grad=max(rel, key=rel.get), to64=to64, worst64=worst,
+                   buffer_err=max(buf_err.values()), worst_buffer=max(buf_err, key=buf_err.get))
+        del ref64, g64, one
+    del grads, bufs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _task_tp_two(mesh, device) -> dict:
+    """(c) gloo (1, 2): the tensor-parallel head: shard shapes, the grid,
+    the global gradient norm; rank 0 then runs the unsharded model."""
+    import torch
+    import torch.distributed as dist
+
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.parallel.mesh import gather, sharded_parameters
+
+    images, targets, mask = _par_inputs()
+    x = device_normalize(images).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    trainer = _par_trainer(_model("full"), mesh)
+    model = trainer.model
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters() if "fc_layers" in k}
+    with torch.no_grad():
+        grid = model.eval()(x).clone()
+    torch.cuda.reset_peak_memory_stats()
+    parts, ms = _step(trainer, images, targets, mask)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    norm = float(trainer.last_grad_norm)
+    # The same (clipped) gradients' norm two ways: the Trainer's from the
+    # shards, and the plain norm of the gathered gradients.
+    dims = sharded_parameters(model)
+    full = [gather(p.grad, mesh.get_group("model"), dims[k]).double() if k in dims
+            else p.grad.double().cpu() for k, p in model.named_parameters()]
+    again = float(trainer.grad_norm())
+    direct = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                         for g in full])))
+    out = {"shapes": shapes, "parts": parts, "ms": ms, "peak_gib": peak, "norm": norm,
+           "norm_two_ways": (again, direct)}
+    del trainer, model, full
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        ref = _par_trainer(_model("full"))
+        with torch.no_grad():
+            ref_grid = ref.model.eval()(x)
+        torch.cuda.reset_peak_memory_stats()
+        ref_parts, ref_ms = _step(ref, images, targets, mask)
+        out.update(grid_err=float((grid - ref_grid).abs().max() / ref_grid.abs().max()),
+                   ref_norm=float(ref.last_grad_norm), ref_parts=ref_parts, ref_ms=ref_ms,
+                   ref_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del ref
+        torch.cuda.empty_cache()
+        ref64 = _model(False).double()
+        ref64.head.fc_layers[3].fixed_mask = mask
+        out["norm64"] = _float64_step(ref64, images, targets)
+        del ref64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_train(card: str) -> tuple:
+    """Phase 33: data parallelism with synchronized BN, and the TP head, at
+    full width (ResNet50, 448x448, fp32, TF32 off, deterministic cuDNN).
+    Returns (b)'s first rank's fused-BN launches and BN all-reduces."""
+    import torch
+
+    torch.cuda.empty_cache()
+    (a,) = _world("ddp_one", 1, 1)
+    log(f"[33] (a) {a['backend']} world of 1, DistributedDataParallel, batch {PAR_BATCH}: "
+        f"loss {a['parts'][1]['total']:.6f} (plain Trainer {a['parts'][0]['total']:.6f}); "
+        f"{a['n_grads']} gradients equal: {a['grads_equal']}; {a['n_buffers']} BN buffers "
+        f"equal: {a['buffers_equal']}")
+    log(f"[33] (a) {card}: train step, CUDA events, 3 steps after the compared one: plain "
+        f"Trainer {a['ms'][0]:.2f} ms, DDP world of 1 {a['ms'][1]:.2f} ms")
+    if a["parts"][0] != a["parts"][1] or not (a["grads_equal"] and a["buffers_equal"]):
+        raise AssertionError("(a) the DDP step of a world of 1 differs from the plain step")
+
+    ranks = _world("dp_two", 2, 1)
+    r0 = ranks[0]
+    loss = float(np.mean([r["parts"]["total"] for r in ranks]))
+    want = r0["ref_parts"]["total"]
+    w = r0["worst64"]
+    log(f"[33] (b) {r0['backend']} world of 2, mesh (2, 1), {PAR_BATCH // 2} images a rank: "
+        f"loss {loss:.6f} (mean of the ranks') vs one process at {PAR_BATCH} {want:.6f} (rel "
+        f"{abs(loss - want) / want:.2e}); worst gradient relative L2 vs one process "
+        f"{r0['grad_rel_l2']:.3g} at {r0['worst_grad']}; running stats worst max |diff| / max "
+        f"|value| {r0['buffer_err']:.2e} at {r0['worst_buffer']}")
+    for k in dict.fromkeys((*GRAD_NAMES, r0["worst_grad"], w)):
+        log(f"[33] (b) gradient {k}: relative L2 vs float64, synchronized "
+            f"{r0['to64'][k][0]:.3g}, one process {r0['to64'][k][1]:.3g}")
+    for r, out in enumerate(ranks):
+        log(f"[33] (b) rank {r}: fused-BN launches {out['launches']}, BN all-reduces "
+            f"{out['all_reduces']}; step {out['ms']:.1f} ms (two ranks time-sharing one card "
+            f"over gloo, not a scaling figure); peak memory {out['peak_gib']:.2f} GiB")
+    log(f"[33] (b) {card}: one process at batch {PAR_BATCH}: step {r0['ref_ms']:.1f} ms (first "
+        f"step, host clock)")
+    if not abs(loss - want) <= 1e-5 * abs(want):
+        raise AssertionError(f"(b) loss {loss} vs {want}")
+    # float32 gradients of one step: a sum over 802,816 rows a channel (the
+    # stem BN's bias) differs between two summation orders by more than
+    # 1e-4 of its small total, so each step is held to float64 instead.
+    sync64, one64 = r0["to64"][w]
+    if not sync64 <= 2 * one64 + 1e-5 or not r0["buffer_err"] <= 1e-5:
+        raise AssertionError(f"(b) gradient {w} {sync64:.3g} from float64 (one process "
+                             f"{one64:.3g}), or running stats off by {r0['buffer_err']:.3g}")
+    for out in ranks:
+        if out["launches"] != dict.fromkeys(out["launches"], 53) or out["all_reduces"] != 106:
+            raise AssertionError(f"(b) each rank must launch each fused-BN kernel 53 times "
+                                 f"with 106 all-reduces, got {out['launches']}, "
+                                 f"{out['all_reduces']}")
+    synchronized = (r0["launches"], r0["all_reduces"])
+
+    ranks = _world("tp_two", 1, 2)
+    r0 = ranks[0]
+    again, direct = r0["norm_two_ways"]
+    log(f"[33] (c) {r0['backend']} world of 2, mesh (1, 2): fc shapes a rank {r0['shapes']}; "
+        f"grid max |diff| / max |grid| vs the unsharded model {r0['grid_err']:.2e}; global "
+        f"gradient norm {r0['norm']:.6f} vs unsharded {r0['ref_norm']:.6f} (rel "
+        f"{abs(r0['norm'] - r0['ref_norm']) / r0['ref_norm']:.2e}), float64 "
+        f"{r0['norm64']:.6f}; the same clipped gradients' norm from the shards {again:.9g} "
+        f"and gathered {direct:.9g}")
+    for r, out in enumerate(ranks):
+        log(f"[33] (c) rank {r}: step {out['ms']:.1f} ms (two ranks time-sharing one card over "
+            f"gloo, not a scaling figure), peak memory {out['peak_gib']:.2f} GiB vs one "
+            f"process {r0['ref_peak_gib']:.2f} GiB")
+    if r0["shapes"]["head.fc_layers.1.weight"] != (2048, 50176):
+        raise AssertionError(f"(c) fc1 shard {r0['shapes']['head.fc_layers.1.weight']}")
+    if not r0["grid_err"] <= 1e-5:
+        raise AssertionError(f"(c) the sharded grid is off by {r0['grid_err']}")
+    # The norm of the same gradients, from the shards and gathered, agrees to
+    # 1e-6; the sharded step's gradients differ from the unsharded step's as
+    # two float32 summation orders do (fc1's input gradient is a sum of two
+    # partial products), so each step's norm is held to float64's.
+    off64, one64 = abs(r0["norm"] - r0["norm64"]), abs(r0["ref_norm"] - r0["norm64"])
+    if not abs(again - direct) <= 1e-6 * direct or not off64 <= 2 * one64 + 1e-6 * r0["norm64"]:
+        raise AssertionError(f"(c) global gradient norm {r0['norm']} (unsharded "
+                             f"{r0['ref_norm']}, float64 {r0['norm64']}); {again} vs {direct}")
+    return synchronized
+
+
+def _task_serve_eval(mesh, device) -> dict:
+    """Phase 34 on each rank: the sharded int8 engine at global batch 32
+    against the default engine on the rank's 16 images, and evaluate_model
+    on the mesh; rank 0 then evaluates single-process at the rank batch."""
+    import torch
+    import torch.distributed as dist
+
+    from yolo_tpu_torch.data import VOC_CLASSES, encode_target
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.metrics import evaluate_model
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.ops.decode import decode_predictions
+    from yolo_tpu_torch.parallel import batch_slice
+    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
+                                               gather_detections, int8_forward,
+                                               make_sharded_int8_engine_fn)
+
+    model = _int8_model()
+    r = np.random.default_rng(43)
+    calib = [device_normalize(torch.from_numpy(
+        r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(device))
+        for _ in range(2)]
+    impl = default_impl()
+    single, q = build_int8_predict(model, calib, impl=impl)
+    images = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, size=(2 * SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(device)
+    with torch.inference_mode():
+        grid = int8_forward(q, images[:SLICE_BATCH], S=S, impl=impl)
+    thr = float(decode_predictions(grid, S, B, C, float("-inf")).scores.float().median())
+    sharded = make_sharded_int8_engine_fn(mesh, S, B, C, impl=impl)
+    _zero_counts()
+    dets = sharded(q, images, thr, IOU_T)
+    torch.cuda.synchronize()
+    launches = tuple(_counts())
+    ref = single(q, batch_slice(mesh, images), thr, IOU_T)
+    equal = all(torch.equal(a, b) for a, b in zip(dets, ref))
+    gathered = gather_detections(mesh, dets)
+    serve_ms = cuda_ms(lambda: sharded(q, images, thr, IOU_T), iters=5)
+    del q, single, sharded, calib
+
+    # The detecting model (_eval_model: a dog box in every cell) on images
+    # whose target is one centred dog: the middle cell's box is a TP.
+    del model
+    torch.cuda.empty_cache()
+    model = _eval_model()
+    dog = encode_target(np.array([[0.5, 0.5, BOX_W, BOX_H]], np.float32),
+                        [VOC_CLASSES.index("dog")], S, B, C)
+    rows = np.random.default_rng(47)
+    batches = [(rows.integers(0, 256, size=(2 * SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8),
+                np.repeat(dog[None], 2 * SLICE_BATCH, axis=0)) for _ in range(2)]
+    cuda_nms.LAUNCHES = 0
+    keys = evaluate_model(model, _Batches(batches, 2 * SLICE_BATCH), verbose=False,
+                          device=device, precise=False, mesh=mesh)
+    eval_nms = cuda_nms.LAUNCHES
+    out = {"launches": launches, "equal": equal, "kept": int(dets.valid.sum()),
+           "gathered": tuple(gathered.valid.shape), "serve_ms": serve_ms, "keys": keys,
+           "eval_nms": eval_nms, "thr": thr}
+    if dist.get_rank() == 0:
+        half = [(i[k:k + SLICE_BATCH], t[k:k + SLICE_BATCH]) for i, t in batches
+                for k in (0, SLICE_BATCH)]
+        out["ref_keys"] = evaluate_model(model, _Batches(half, SLICE_BATCH), verbose=False,
+                                         device=device, precise=False)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_serve(card: str) -> tuple:
+    """Phase 34: the sharded int8 engine and the sharded evaluator on a
+    gloo (2, 1) world."""
+    ranks = _world("serve_eval", 2, 1)
+    for r, out in enumerate(ranks):
+        log(f"[34] rank {r} ({out['backend']}, mesh (2, 1)): sharded int8 engine at global "
+            f"batch {2 * SLICE_BATCH}, threshold {out['thr']:.6g}: launches (stem, int8 conv, "
+            f"NMS) {out['launches']}; detections == the default engine's on its "
+            f"{SLICE_BATCH} images: {out['equal']} ({out['kept']} kept); gathered "
+            f"{out['gathered']}; {out['serve_ms']:.2f} ms a global batch (two ranks "
+            f"time-sharing one card over gloo, not a scaling figure); evaluate_model(mesh) "
+            f"fast path: NMS launches {out['eval_nms']} for 2 batches")
+        if out["launches"] != (1, 58, 1) or not out["equal"]:
+            raise AssertionError(f"(34) rank {r}: launches {out['launches']}, equal "
+                                 f"{out['equal']}")
+        if out["gathered"] != (2 * SLICE_BATCH, S * S * B) or out["eval_nms"] != 2:
+            raise AssertionError(f"(34) rank {r}: gathered {out['gathered']}, NMS launches "
+                                 f"{out['eval_nms']}")
+        if out["keys"] != ranks[0]["ref_keys"]:
+            bad = [k for k in ranks[0]["ref_keys"] if out["keys"].get(k) !=
+                   ranks[0]["ref_keys"][k]]
+            raise AssertionError(f"(34) rank {r}: keys differ from one process's: {bad[:5]}")
+    keys = ranks[0]["ref_keys"]
+    log(f"[34] evaluate_model on the mesh: all {len(keys)} keys == one process at batch "
+        f"{SLICE_BATCH} on every rank (mAP50 {keys['mAP50']:.6f}, precision "
+        f"{keys['precision']:.6f}, recall {keys['recall']:.6f})")
+    if not keys["recall"] > 0:
+        raise AssertionError("(34) the detecting model found no dog: the keys compare nothing")
+    return ranks[0]["launches"], ranks[0]["eval_nms"]
+
+
+def _torchrun(module: str, args: list, tag: str) -> str:
+    """``torchrun --standalone --nproc-per-node 2 -m module args``; its output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", module, *args]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    if run.returncode:
+        raise AssertionError(f"{tag} exited {run.returncode}:\n{run.stdout[-3000:]}\n"
+                             f"{run.stderr[-3000:]}")
+    log(f"[35] torchrun --nproc-per-node 2 -m {module} {' '.join(a for a in args if '/' not in a)}"
+        f": {time.perf_counter() - t0:.1f} s")
+    return run.stdout + run.stderr
+
+
+def phase_parallel_clis() -> None:
+    """Phase 35: the train CLI under torchrun on two ranks of the card (gloo):
+    --mesh-data 2 --orbax-checkpoints, --resume orbax, --mesh-model 2; the
+    evaluate CLI with --mesh-data 2; predict on the .pth the mesh wrote."""
+    import torch
+
+    from yolo_tpu_torch import predict
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        tmp = Path(tmp)
+        _write_voc(tmp / "voc")
+        ck = tmp / "ck"
+        # --batch-size 4: 2 images a rank, one step an epoch (7 images);
+        # the 1-image validation batch leaves rank 1 all padding.
+        base = ["--data-root", str(tmp / "voc"), "--device", "cuda", "--batch-size", "4",
+                "--image-size", str(SIZE), "--num-workers", "2", "--worker-type", "thread",
+                "--log-dir", str(tmp / "runs"), "--save-frequency", "100"]
+        out = _torchrun("yolo_tpu_torch.train", [*base, "--checkpoint-dir", str(ck),
+                                                 "--mesh-data", "2", "--orbax-checkpoints",
+                                                 "--epochs", "1"], "train --mesh-data 2")
+        if "backend is gloo" not in out:
+            raise AssertionError("two ranks on one card must say they run gloo")
+        (ck / "yolo_best.pth").unlink()
+        first = torch.load(ck / "yolo_latest.pth", map_location="cpu",
+                           weights_only=True)["scheduler_state_dict"]["last_epoch"]
+        out = _torchrun("yolo_tpu_torch.train", [*base, "--checkpoint-dir", str(ck),
+                                                 "--mesh-data", "2", "--orbax-checkpoints",
+                                                 "--resume", "orbax", "--epochs", "2"],
+                        "train --resume orbax")
+        snaps = sorted(p.name for p in (ck / "dcp").iterdir())
+        latest = torch.load(ck / "yolo_latest.pth", map_location="cpu", weights_only=True)
+        steps = latest["scheduler_state_dict"]["last_epoch"]
+        if "Resumed from DCP snapshot 1" not in out or snaps != ["1", "2"] \
+                or latest["epoch"] != 2 or steps != 2 * first:
+            raise AssertionError(f"--resume orbax: snapshots {snaps}, epoch "
+                                 f"{latest['epoch']}, steps {steps}")
+        log(f"[35] DCP snapshots {snaps}; yolo_latest.pth: epoch 2 after {steps} steps, "
+            f"fc1 {tuple(latest['model_state_dict']['head.fc_layers.1.weight'].shape)}")
+        del latest
+        shutil.rmtree(ck / "dcp")
+        (ck / "yolo_best.pth").unlink(missing_ok=True)
+        _torchrun("yolo_tpu_torch.train", [*base, "--checkpoint-dir", str(tmp / "ck2"),
+                                           "--mesh-model", "2", "--epochs", "1"],
+                  "train --mesh-model 2")
+        tp = torch.load(tmp / "ck2" / "yolo_latest.pth", map_location="cpu", weights_only=True)
+        if tuple(tp["model_state_dict"]["head.fc_layers.1.weight"].shape) != (4096, 50176):
+            raise AssertionError("--mesh-model 2 must write the unsharded fc1")
+        del tp
+        shutil.rmtree(tmp / "ck2")
+        out = _torchrun("yolo_tpu_torch.evaluate", ["--checkpoint", str(ck / "yolo_latest.pth"),
+                                                    "--data-root", str(tmp / "voc"),
+                                                    "--year", "2012", "--image-set", "train",
+                                                    "--batch-size", "2", "--num-workers", "0",
+                                                    "--mesh-data", "2"],
+                        "evaluate --mesh-data 2")
+        if "mAP50:95" not in out or not (ck / "evaluation_results.txt").is_file():
+            raise AssertionError("evaluate --mesh-data 2 wrote no results")
+        predict.main(["--checkpoint", str(ck / "yolo_latest.pth"), "--image-dir",
+                      str(tmp / "voc" / "VOCdevkit" / "VOC2007" / "JPEGImages"), "--output",
+                      str(tmp / "pred"), "--conf-threshold", "0.0"])
+        n_pred = len(list((tmp / "pred").iterdir()))
+        if not n_pred:
+            raise AssertionError("predict wrote nothing for the meshed run's .pth")
+        log(f"[35] evaluate --mesh-data 2 wrote evaluation_results.txt; predict on the meshed "
+            f"run's yolo_latest.pth wrote {n_pred} files")
+    torch.cuda.empty_cache()
+
+
+PAR_TASKS = {"ddp_one": _task_ddp_one, "dp_two": _task_dp_two, "tp_two": _task_tp_two,
+             "serve_eval": _task_serve_eval}
+
+
 
 def int8_conv_times(root: Path) -> None:
     """Device and wrapper ms of the int8 conv at every distinct geometry of
@@ -4060,6 +4577,14 @@ def main() -> None:
     quant_launches = timed(32, phase_quantized, card)
     log(f"[29-32] launches: NMS {y24_launches} a 24-conv batch; fused-BN {remat_launches} a "
         f"remat='block' fused step; int8 conv {quant_launches} a quantized ResNet50 forward")
+    torch.cuda.empty_cache()
+    sync_launches, sync_reduces = timed(33, phase_parallel_train, card)
+    par_serve = timed(34, phase_parallel_serve, card)
+    timed(35, phase_parallel_clis)
+    log(f"[33-35] launches a rank: synchronized step, fused-BN {sync_launches} with "
+        f"{sync_reduces} BN all-reduces; sharded engine (stem, int8 conv, NMS) "
+        f"{par_serve[0]} a batch; "
+        f"sharded evaluator NMS {par_serve[1]} for 2 batches")
     log(f"[24] evaluator path launches: NMS {eval_nms} for {len(eval_batches())} metric "
         f"batches; CLI runs (stem, int8 conv, NMS): {eval_launches}")
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))

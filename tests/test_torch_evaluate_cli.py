@@ -125,8 +125,6 @@ def test_int8_calibrated_on_calib_data_then_engine_artifact(setup, capsys):
 
 @pytest.mark.parametrize("flags, message", [
     (["--int8"], "--calib-data"),
-    (["--mesh-data", "2"], "not yet ported"),
-    (["--mesh-model", "2"], "not yet ported"),
     (["--download-data"], "needs a network"),
 ])
 def test_refusals_exit_with_a_message(tmp_path, flags, message):

@@ -3,8 +3,9 @@
 One epoch at 64x64, batch 2, writes ``yolo_latest.pth`` and ``yolo_best.pth``
 with the reference's keys; ``--resume true --epochs 2`` starts at epoch 2
 with the optimizer step carried over; ``--compute-map`` adds the mAP keys to
-the validation pass and keeps ``yolo_best_map.pth``; the flags that are not
-ported yet exit with a message before anything is built.
+the validation pass and keeps ``yolo_best_map.pth``; ``--download-data``
+exits with a message before anything is built. The mesh flags run under
+torchrun in ``test_torch_parallel_cli.py``.
 """
 
 import shutil
@@ -82,14 +83,11 @@ def test_compute_map_writes_best_map_checkpoint(run_dir, capsys):
     start.unlink()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh-data", "2"], ["--mesh-model", "2"], ["--remote"], ["--orbax-checkpoints"],
-    ["--resume", "orbax"], ["--download-data"],
-])
+@pytest.mark.parametrize("flags", [["--download-data"]])
 def test_unported_flags_exit_with_a_message(tmp_path, flags):
     with pytest.raises(SystemExit) as exc:
         train.main(["--data-root", str(tmp_path), "--device", "cpu", *flags])
-    assert "not yet ported" in str(exc.value) or "needs a network" in str(exc.value)
+    assert "needs a network" in str(exc.value)
 
 
 def test_cuda_device_is_required_by_default(tmp_path, monkeypatch):

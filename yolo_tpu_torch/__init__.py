@@ -8,7 +8,8 @@ hand-written CUDA kernel ``csrc/nms.cu``), its training (``training``,
 ``data``, the fused-BN kernels ``csrc/fused_bn.cu``) and its int8 serving
 engine (``serving``, the kernels ``csrc/quant_s2d.cu``,
 ``csrc/int8_conv.cu``, the opt-in ``csrc/int8_bottleneck.cu`` and
-``csrc/int8_wino.cu``) and its mAP evaluator (``metrics``), driven by
+``csrc/int8_wino.cu``), its mAP evaluator (``metrics``) and data and
+tensor parallelism over a ("data", "model") mesh (``parallel``), driven by
 ``inference.YOLOInference`` and the ``predict``, ``train`` and ``evaluate``
 CLIs.
 

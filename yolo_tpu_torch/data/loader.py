@@ -20,8 +20,16 @@ order: augmentation draws come from per-sample stateless streams seeded by
 (seed, epoch, idx) — see VOCDetectionYOLO.__getitem__ — not from a shared
 RNG, so a batch's content depends only on its indices and the epoch.
 Supports shuffling, drop_last, and deterministic per-epoch seeding.
-Multi-host sharding (``shard_by_process``) belongs to the parallelism slice
-and is not ported.
+
+Data parallelism (``shard_by_process=(d, D)``): every rank shuffles the same
+index stream and loads its strided slice ``indices[d::D]``, cut to the
+common ``n // D`` so that every rank yields as many batches (JAX's
+multi-host mode, loader.py:91-119, 158-193). ``d``/``D`` are the **data**
+coordinate and size, not the global rank: ranks that differ only in the
+model coordinate load the same samples. ``batch_size`` is then the batch of
+one data rank; the train CLI passes ``--batch-size / n_data``, so that
+``--batch-size`` stays the global batch, as on one JAX host (JAX's
+``--remote`` keeps it per host instead).
 """
 
 from __future__ import annotations
@@ -90,6 +98,8 @@ class DataLoader:
         worker_type: "thread" | "process" | "auto" (see module docstring).
             The process pool is persistent across epochs; call ``close()``
             (or rely on interpreter exit) to reap it.
+        shard_by_process: (data coordinate, data size) of this rank, or
+            None: load the whole index stream (see module docstring).
     """
 
     def __init__(
@@ -102,6 +112,7 @@ class DataLoader:
         prefetch: int = 4,
         seed: int = 0,
         worker_type: str = "thread",
+        shard_by_process: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -110,6 +121,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.seed = seed
+        self.shard_by_process = shard_by_process
         self.epoch = 0
         if worker_type not in ("thread", "process", "auto"):
             raise ValueError(f"worker_type must be thread|process|auto, got {worker_type!r}")
@@ -147,8 +159,15 @@ class DataLoader:
             )
         return self._pool
 
-    def __len__(self) -> int:
+    def _local_count(self) -> int:
+        """Samples this rank iterates (the same on every rank when sharded)."""
         n = len(self.dataset)
+        if self.shard_by_process is None:
+            return n
+        return n // self.shard_by_process[1]
+
+    def __len__(self) -> int:
+        n = self._local_count()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -165,6 +184,10 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch * 10007)
             rng.shuffle(indices)
+        if self.shard_by_process is not None:
+            d, size = self.shard_by_process
+            indices = indices[d::size][:self._local_count()]
+            n = len(indices)
         batches = []
         step = self.batch_size
         limit = n - (n % step) if self.drop_last else n

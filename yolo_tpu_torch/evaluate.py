@@ -21,13 +21,20 @@ tables and writes ``evaluation_results.txt`` beside the checkpoint.
   saved engine artifact as it is (no calibration; the checkpoint still
   gives the geometry). Both for the ResNet only, as in JAX.
 
-Refused with a message: ``--mesh-data`` / ``--mesh-model`` above 1 (not yet
-ported); ``--download-data`` needs a network.
+- ``--mesh-data`` / ``--mesh-model``: under ``torchrun`` (one process a
+  device) each data rank evaluates its rows of every batch and the results
+  are gathered, so every rank holds the same keys; ``--mesh-model`` alone
+  implies ``--mesh-data 1``, as in JAX, and cuts the FC head. ``--int8``
+  keeps the stem-front kernel under a mesh. Only the first rank prints and
+  writes the results.
+
+Refused with a message: ``--download-data`` needs a network.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 from pathlib import Path
 
 
@@ -61,8 +68,10 @@ def parse_args(argv=None):
     p.add_argument("--calib-data", default=None,
                    help="dataset spec for the int8 activation calibration, e.g. "
                         "'2007:trainval' (same --data-root); required with --int8")
-    p.add_argument("--mesh-data", type=int, default=None, help="not yet ported above 1")
-    p.add_argument("--mesh-model", type=int, default=1, help="not yet ported above 1")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh axis size (ranks from torchrun)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel mesh axis size for the FC head")
     p.add_argument("--fast-eval", action="store_true",
                    help="run decode/NMS/matching in float32. Default: the precise path, "
                         "float64 (both on the device)")
@@ -72,8 +81,6 @@ def parse_args(argv=None):
 def _refuse(args) -> None:
     if (args.int8 or args.engine) and args.backbone != "resnet":
         raise SystemExit("--int8 supports the resnet flagship only")
-    if (args.mesh_data or 1) > 1 or args.mesh_model > 1:
-        raise SystemExit("--mesh-data/--mesh-model above 1 is not yet ported to yolo_tpu_torch")
     if args.download_data:
         raise SystemExit("--download-data needs a network; put the VOC tree under --data-root")
     if args.int8 and not args.engine and not args.calib_data:
@@ -129,7 +136,21 @@ def _datasets(spec, args, size):
 def main(argv=None):
     args = parse_args(argv)
     _refuse(args)
+    if args.mesh_model > 1 and not args.mesh_data:
+        args.mesh_data = 1  # --mesh-model alone: a (1, n_model) mesh, as in JAX
 
+    import torch
+
+    from yolo_tpu_torch.parallel.distributed import run_on_mesh
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: CUDA is not available (pass --device cpu)")
+
+    return run_on_mesh(functools.partial(_evaluate, args), args.device, args.mesh_data,
+                       args.mesh_model, args.batch_size)
+
+
+def _evaluate(args, mesh, device, first: bool):
     import torch
 
     from yolo_tpu_torch.data import VOC_CLASSES
@@ -137,9 +158,6 @@ def main(argv=None):
     from yolo_tpu_torch.models import create_model
     from yolo_tpu_torch.training.checkpoints import load_model
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: CUDA is not available (pass --device cpu)")
     ckpt_path = Path(args.checkpoint)
     if not ckpt_path.exists():
         raise SystemExit(f"Checkpoint not found: {ckpt_path}")
@@ -192,6 +210,12 @@ def main(argv=None):
         def forward_fn(images):
             return int8_forward(q, images, S=model.S, impl=impl)
 
+    if mesh is not None:
+        from yolo_tpu_torch.parallel import shard_head
+
+        shard_head(model, mesh)  # after the int8 fold, which reads the whole fc1
+        print(f"Evaluation mesh: {mesh}")
+
     if not args.fast_eval:
         print("Precise eval path active (float64 decode/NMS/matching on the device); pass"
               " --fast-eval for the float32 path.")
@@ -199,15 +223,17 @@ def main(argv=None):
         results = evaluate_model(
             model, loader, num_classes=args.num_classes, conf_threshold=args.conf_threshold,
             nms_threshold=args.nms_threshold, S=model.S, B=model.B, device=device,
-            forward_fn=forward_fn, precise=not args.fast_eval, use_amp=args.use_bf16)
+            forward_fn=forward_fn, precise=not args.fast_eval, use_amp=args.use_bf16,
+            mesh=mesh)
     finally:
         loader.close()
 
     report = format_results(results, args.num_classes, VOC_CLASSES)
     print("\n" + report)
-    out_path = ckpt_path.parent / "evaluation_results.txt"
-    out_path.write_text(report + "\n")
-    print(f"\nResults written to {out_path}")
+    if first:
+        out_path = ckpt_path.parent / "evaluation_results.txt"
+        out_path.write_text(report + "\n")
+        print(f"\nResults written to {out_path}")
     return results
 
 

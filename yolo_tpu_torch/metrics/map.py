@@ -28,6 +28,13 @@ twin.
 
 Both decodes divide by S as a 0-dim tensor (``s_divisor``): a true division
 on every device, as JAX's evaluator does.
+
+Under a mesh (``mesh=``, ``parallel.make_mesh``) each rank runs forward,
+decode, NMS and matching on its rows of every global batch, and
+:meth:`mAPMetric.update` gathers the per-image results and the sample
+mask over the data group in global row order, so every rank accumulates
+the whole dataset and returns the same 77 keys as one process (JAX
+map.py:164-185, 455-470).
 """
 
 from __future__ import annotations
@@ -108,6 +115,18 @@ def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return _unpack(_pack(out).cpu(), out)
 
 
+def _gather_rows(chunk: Dict[str, np.ndarray], group) -> Dict[str, np.ndarray]:
+    """Every rank's rows of a batch's results, in group-rank order (one
+    all-gather of the packed bytes, through the CPU)."""
+    from yolo_tpu_torch.parallel.mesh import gather
+
+    like = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in chunk.items()}
+    packed = gather(_pack(like), group).reshape(-1, sum(t.numel() * t.element_size()
+                                                        for t in like.values()))
+    parts = [_unpack(row.clone(), like) for row in packed]  # each row from offset 0
+    return {k: np.concatenate([p[k] for p in parts]) for k in chunk}
+
+
 def _eleven_point_ap(precisions: np.ndarray, recalls: np.ndarray) -> float:
     """11-point interpolated AP with [1.0]/[0.0] sentinels (VOC2007)."""
     precisions = np.concatenate(([1.0], precisions))
@@ -123,8 +142,8 @@ class mAPMetric:
     """Streaming mAP metric: reset / update / compute.
 
     Args: num_classes, iou_thresholds (None -> 0.5:0.05:0.95; a scalar is
-    accepted), conf_threshold (0.01), nms_threshold (0.4), S, B, and
-    ``precise`` (see the module docstring).
+    accepted), conf_threshold (0.01), nms_threshold (0.4), S, B,
+    ``precise`` and ``mesh`` (see the module docstring).
     """
 
     def __init__(
@@ -136,8 +155,10 @@ class mAPMetric:
         S: int = 7,
         B: int = 2,
         precise: bool = True,
+        mesh=None,
     ):
         self.num_classes = num_classes
+        self.mesh = mesh
         if iou_thresholds is None:
             self.iou_thresholds = [0.5 + 0.05 * i for i in range(10)]
         elif isinstance(iou_thresholds, (int, float)):
@@ -182,9 +203,12 @@ class mAPMetric:
                 thresholds, s_divisor)
         chunk = _to_host(out)
         if sample_mask is not None:
-            m = np.asarray(torch.as_tensor(sample_mask).cpu(), bool)
-            if not m.all():
-                chunk = {k: v[m] for k, v in chunk.items()}
+            chunk["sample_mask"] = np.asarray(torch.as_tensor(sample_mask).cpu(), bool)
+        if self.mesh is not None:
+            chunk = _gather_rows(chunk, self.mesh.get_group("data"))
+        m = chunk.pop("sample_mask", None)
+        if m is not None and not m.all():
+            chunk = {k: v[m] for k, v in chunk.items()}
         self._chunks.append(chunk)
 
     # ------------------------------------------------------------------ compute
@@ -306,6 +330,7 @@ def evaluate_model(
     forward_fn=None,
     precise: bool = True,
     use_amp: bool = False,
+    mesh=None,
 ) -> Dict[str, float]:
     """Evaluate a YOLO model over a dataloader; returns the 77 metric keys.
 
@@ -317,11 +342,13 @@ def evaluate_model(
     forward: ``(normalized float32 NHWC images on the device) -> (N, S, S,
     B*5+C)``, e.g. the int8 serving engine. A ragged final batch is
     zero-padded to the loader's ``batch_size`` and its padding dropped with
-    ``sample_mask``. ``precise`` as in :class:`mAPMetric`.
+    ``sample_mask``. ``precise`` as in :class:`mAPMetric`. With ``mesh`` each
+    rank evaluates its rows of every (padded) batch (``parallel.batch_slice``)
+    and every rank returns the whole dataset's keys.
     """
     metric = mAPMetric(num_classes=num_classes, iou_thresholds=iou_thresholds,
                        conf_threshold=conf_threshold, nms_threshold=nms_threshold, S=S, B=B,
-                       precise=precise)
+                       precise=precise, mesh=mesh)
     device = torch.device(device) if device is not None else next(model.parameters()).device
     if model is not None:
         model.eval()
@@ -352,6 +379,11 @@ def evaluate_model(
         if full_batch is not None and n < full_batch:
             images, targets, n = pad_batch(np.asarray(images), np.asarray(targets), full_batch)
             mask = np.arange(full_batch) < n
+        if mesh is not None:
+            from yolo_tpu_torch.parallel.mesh import batch_slice
+
+            images, targets = batch_slice(mesh, images), batch_slice(mesh, targets)
+            mask = None if mask is None else batch_slice(mesh, mask)
         preds = forward(torch.as_tensor(images).to(device))
         metric.update(preds, targets, sample_mask=mask)
     return metric.compute()

@@ -89,16 +89,48 @@ def batch_norm(c: int, *, device: torch.device | str) -> nn.BatchNorm2d:
     return skip_init(BatchNorm2d, c, eps=1e-5, momentum=0.1, device=device)
 
 
+def _update_running_stats(bn: nn.BatchNorm2d, mean, var, count) -> None:
+    """torch's running-stat update: momentum, the unbiased ``var*M/(M-1)``
+    (ROADMAP F1), ``num_batches_tracked += 1``; none in a recomputed forward."""
+    if recomputing():
+        return
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach() * (count / (count - 1)), alpha=m)
+        bn.num_batches_tracked.add_(1)
+
+
+def _global_count(x: torch.Tensor, group) -> int:
+    """Rows of the global batch: every rank of ``group`` holds as many as ``x``."""
+    import torch.distributed as dist
+
+    return x.numel() // x.shape[1] * dist.get_world_size(group)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that leaves its running statistics alone in a
-    recomputed forward (:func:`recomputing`).
+    recomputed forward (:func:`recomputing`), and synchronizes its
+    statistics under data parallelism.
 
-    There it normalizes with the batch statistics as before, into copies
-    of the running buffers that are thrown away, so torch takes the same
-    kernel path and computes the same values as in the first forward.
+    In a recomputed forward it normalizes with the batch statistics as
+    before, into copies of the running buffers that are thrown away, so
+    torch takes the same kernel path and computes the same values as in the
+    first forward. With ``sync_group`` set (``parallel.sync_batch_norm``, a
+    data axis of several ranks) train mode is the synchronized ``"full"``
+    path of ``ops.fused_bn`` without ReLU: the kernels on the card, their
+    twins on the CPU. JAX's unfused BN under a mesh is XLA's over the
+    global batch, and ``torch.nn.SyncBatchNorm`` refuses CPU tensors.
     """
 
+    sync_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.sync_group is not None:
+            out, mean, var = fused_bn.fused_bn_act(x, self.weight, self.bias, None, False,
+                                                   self.sync_group)
+            _update_running_stats(self, mean, var, _global_count(x, self.sync_group))
+            return out
         if self.training and recomputing():
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
@@ -151,7 +183,14 @@ class FusedBatchNormAct(nn.BatchNorm2d):
     **unbiased** batch variance ``var*M/(M-1)`` (flax uses the biased one;
     ROADMAP F1), ``num_batches_tracked += 1``. Eval mode is plain torch in
     JAX's op order, ``((x - mean) * (rsqrt(var + eps) * weight) + bias)``.
+
+    With ``sync_group`` set (``parallel.sync_batch_norm``, a data axis of
+    several ranks) train mode is the synchronized ``"full"`` path whatever
+    ``mode`` says, and the running variance takes the global ``M``; at
+    ``n_data == 1`` ``mode`` keeps its meaning.
     """
+
+    sync_group = None
 
     def __init__(self, c: int, relu: bool = True, mode: str = "full", *,
                  device: torch.device | str | None = None):
@@ -164,7 +203,12 @@ class FusedBatchNormAct(nn.BatchNorm2d):
         return f"{super().extra_repr()}, relu={self.relu}, mode={self.mode!r}"
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
-        if self.training and self.mode == "full":
+        count = x.numel() // x.shape[1]
+        if self.training and self.sync_group is not None:
+            out, mean, var = fused_bn.fused_bn_act(x, self.weight, self.bias, residual,
+                                                   self.relu, self.sync_group)
+            count = _global_count(x, self.sync_group)
+        elif self.training and self.mode == "full":
             out, mean, var = fused_bn.fused_bn_act(x, self.weight, self.bias, residual,
                                                    self.relu)
         else:
@@ -179,14 +223,8 @@ class FusedBatchNormAct(nn.BatchNorm2d):
             if residual is not None:
                 y = y + residual
             out = torch.relu(y) if self.relu else y
-        if self.training and not recomputing():
-            count = x.numel() // x.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var.detach() * (count / (count - 1)),
-                                                    alpha=m)
-                self.num_batches_tracked.add_(1)
+        if self.training:
+            _update_running_stats(self, mean, var, count)
         return out
 
 
@@ -199,6 +237,13 @@ class Dropout(nn.Module):
     created on the input's device and seeded with ``seed`` at first use
     (:meth:`manual_seed` re-seeds it). A test can set ``fixed_mask`` (a bool
     tensor of the input's shape, True = keep) to use that mask instead.
+
+    ``shard`` = (data coordinate, n_data, model coordinate, n_model), set by
+    ``parallel.shard_head``: the input is this rank's block of a global
+    ``(N * n_data, F * n_model)`` activation. The global mask is drawn (every
+    rank's generator is seeded alike) and the rank keeps its rows and
+    columns, so a seed gives the same mask on any mesh, as in JAX;
+    ``fixed_mask`` is then the global mask, cut the same way.
     """
 
     def __init__(self, p: float = 0.5, seed: int = 0):
@@ -206,6 +251,7 @@ class Dropout(nn.Module):
         self.p, self.seed = p, seed
         self.generator: torch.Generator | None = None
         self.fixed_mask: torch.Tensor | None = None
+        self.shard: tuple | None = None
 
     def extra_repr(self) -> str:
         return f"p={self.p}, seed={self.seed}"
@@ -213,15 +259,27 @@ class Dropout(nn.Module):
     def manual_seed(self, seed: int) -> None:
         self.seed, self.generator = seed, None
 
+    def generator_on(self, device: torch.device) -> torch.Generator:
+        """The mask generator on ``device``, made from ``seed`` at first use."""
+        if self.generator is None or self.generator.device != torch.device(device):
+            self.generator = torch.Generator(device=device).manual_seed(self.seed)
+        return self.generator
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
         mask = self.fixed_mask
+        shape = x.shape
+        if self.shard is not None:
+            d, n_data, m, n_model = self.shard
+            shape = (x.shape[0] * n_data, x.shape[1] * n_model)
         if mask is None:
-            if self.generator is None or self.generator.device != x.device:
-                self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
-            mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+            mask = torch.rand(shape, generator=self.generator_on(x.device),
+                              device=x.device) < keep
+        if self.shard is not None:
+            n, f = x.shape
+            mask = mask[d * n:(d + 1) * n, m * f:(m + 1) * f]
         return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype,
                                                                     device=x.device))
 

@@ -23,6 +23,17 @@ arrive in ``backward``, is copied once into channels_last and counted in
 ``bn_bwd_reduce`` and ``bn_bwd_dx``; :func:`bn_stats_diff` (the ``"stats"``
 mode) through a plain torch backward, as JAX's jnp custom VJP does. The
 per-channel arithmetic between the kernels stays torch on C-length vectors.
+
+Synchronized statistics (``fused_bn_act(..., group=)``, data parallelism):
+the stats kernel's local (mean, var) become sums, ``count*mean`` and
+``count*(var + mean^2)``, which are all-reduced with the counts over
+``group`` before the normalize kernel, so the global ``var = E[x^2] -
+E[x]^2`` is JAX's recipe over the global batch; in the backward pass
+``(sum gz, sum gz*xhat)`` are all-reduced between bwd_reduce and bwd_dx,
+and the global count enters bwd_dx's coefficients. The weight and bias
+gradients stay this rank's sums (DistributedDataParallel averages them).
+:data:`ALL_REDUCES` counts these all-reduces. ``group=None``, or a group
+of one rank, issues no collective.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ EPS = 1e-5
 LAUNCHES = {"stats": 0, "normalize": 0, "bwd_reduce": 0, "bwd_dx": 0}
 #: Operands copied into channels_last before a launch.
 RELAYOUTS = 0
+#: All-reduces of synchronized statistics (forward and backward) since last set to 0.
+ALL_REDUCES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS, _MAX_TX, _TARGET_BLOCKS = 256, 32, 1024
@@ -247,40 +260,82 @@ def bn_bwd_dx(g, out, x, a, b, d, relu, want_dres):
 
 
 # ------------------------------------------------------- autograd Functions
+def _synchronized(group) -> bool:
+    if group is None:
+        return False
+    import torch.distributed as dist
+
+    return dist.get_world_size(group) > 1
+
+
+def _all_reduce(buf: torch.Tensor, group) -> torch.Tensor:
+    global ALL_REDUCES
+    import torch.distributed as dist
+
+    dist.all_reduce(buf, group=group)
+    ALL_REDUCES += 1
+    return buf
+
+
+def _global_stats(mean, var, count: int, group):
+    """(mean, biased var, count) over ``group`` from this rank's, as float32
+    sums of ``(count, count*mean, count*(var + mean^2))``."""
+    c = mean.numel()
+    buf = torch.cat([mean.new_full((1,), float(count)), count * mean,
+                     count * (var + mean * mean)])
+    buf = _all_reduce(buf, group)
+    total = buf[0]
+    g_mean = buf[1:c + 1] / total
+    return g_mean, (buf[c + 1:] / total - g_mean * g_mean).clamp(min=0.0), total
+
+
 class _BNAct(torch.autograd.Function):
     """BN(+residual)+ReLU forward and backward through the kernels (``"full"``).
 
-    Forward and backward as fused_bn.py:378-402. The batch mean and var are
-    outputs for the running-stat update and carry no gradient.
+    Forward and backward as fused_bn.py:378-402, with the statistics and the
+    backward's sums all-reduced over ``group`` where it has several ranks.
+    The batch mean and var are outputs for the running-stat update and
+    carry no gradient.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, residual, relu):
+    def forward(ctx, x, weight, bias, residual, relu, group):
         mean, var = bn_stats(x)
+        count = x.numel() // x.shape[1]
+        if _synchronized(group):
+            mean, var, count = _global_stats(mean, var, count, group)
         r = torch.rsqrt(var + EPS)
         mul = r * weight
         out = bn_normalize(x, mul, bias - mean * mul, residual, relu)
-        ctx.save_for_backward(x, out, mean, r, weight)
-        ctx.relu, ctx.has_res = relu, residual is not None
+        # Without ReLU the backward needs no output (a following in-place op may change it).
+        ctx.save_for_backward(x, out if relu else None, mean, r, weight)
+        ctx.relu, ctx.has_res, ctx.group, ctx.count = relu, residual is not None, group, count
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
     @staticmethod
     def backward(ctx, g_out, _g_mean, _g_var):
         x, out, mean, r, weight = ctx.saved_tensors
-        count = x.numel() // x.shape[1]
         dbias, dscale = bn_bwd_reduce(g_out, out, x, mean, r, ctx.relu)
+        sum_gz, sum_gzx = dbias, dscale
+        if _synchronized(ctx.group):
+            sum_gz, sum_gzx = _all_reduce(torch.stack([dbias, dscale]), ctx.group).unbind(0)
+        count = ctx.count
         mul = r * weight
         # dx = mul*(gz - sum(gz)/M - xhat*sum(gz*xhat)/M) = A*gz - B*x + D
-        b = mul * r * dscale / count
-        d = mean * b - mul * dbias / count
+        b = mul * r * sum_gzx / count
+        d = mean * b - mul * sum_gz / count
         dx, dres = bn_bwd_dx(g_out, out, x, mul, b, d, ctx.relu, ctx.has_res)
-        return dx, dscale, dbias, dres, None
+        return dx, dscale, dbias, dres, None, None
 
 
-def fused_bn_act(x, weight, bias, residual=None, relu=True):
-    """Train-mode BN(+residual)+ReLU of ``x``; returns (out, batch mean, batch var)."""
-    return _BNAct.apply(x, weight, bias, residual, relu)
+def fused_bn_act(x, weight, bias, residual=None, relu=True, group=None):
+    """Train-mode BN(+residual)+ReLU of ``x``; returns (out, batch mean, batch var).
+
+    With ``group`` (a process group of several ranks) the batch is the
+    union of every rank's ``x``, and the mean and var are the global ones.
+    """
+    return _BNAct.apply(x, weight, bias, residual, relu, group)
 
 
 class _BNStats(torch.autograd.Function):

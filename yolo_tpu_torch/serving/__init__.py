@@ -21,8 +21,9 @@
 - ``server``: ``YOLOServer``, the HTTP front end over the batcher
   (``python -m yolo_tpu_torch.serve``).
 
-Serving mode is opt-in: ``YOLOInference(..., optimize="int8")``. The sharded
-engine and the AOT artifact are not ported yet.
+Serving mode is opt-in: ``YOLOInference(..., optimize="int8")``.
+``engine.make_sharded_int8_engine_fn`` serves a global batch over the data
+axis of a ``parallel.make_mesh`` mesh. The AOT artifact is not ported yet.
 """
 
 from yolo_tpu_torch.serving.batcher import RequestBatcher

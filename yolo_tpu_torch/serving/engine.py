@@ -263,6 +263,36 @@ def make_int8_engine_fn(S: int, B: int, num_classes: int, impl: Optional[Dict] =
     return predict
 
 
+def make_sharded_int8_engine_fn(mesh, S: int, B: int, num_classes: int,
+                                impl: Optional[Dict] = None, nms_fn=None):
+    """Data-parallel serving (JAX engine.py:372-415): ``predict(q, images,
+    conf, nms)`` on a global batch, of which each data rank runs its rows
+    (``parallel.batch_slice``) through the int8 engine with no collective,
+    returning its own ``Detections``; :func:`gather_detections` joins them.
+
+    q-params are replicated: every rank holds them on its device. The stem
+    front stays the kernel: JAX drops it under a mesh only because Mosaic's
+    custom call has no GSPMD partitioning rule. The global batch must
+    divide by the data axis (pad ragged batches: ``data.pad_batch``).
+    """
+    from yolo_tpu_torch.parallel.mesh import batch_slice
+
+    fn = make_int8_engine_fn(S, B, num_classes, impl=impl, nms_fn=nms_fn)
+
+    def predict(q, images, conf_threshold, nms_threshold) -> Detections:
+        return fn(q, batch_slice(mesh, images), conf_threshold, nms_threshold)
+
+    return predict
+
+
+def gather_detections(mesh, dets: Detections) -> Detections:
+    """Every data rank's ``Detections`` in global row order, on the CPU."""
+    from yolo_tpu_torch.parallel.mesh import gather
+
+    group = mesh.get_group("data")
+    return Detections(*(gather(t, group) for t in dets))
+
+
 def build_int8_predict(model, calibration_images, impl=None, nms_fn=None, stem_mode="s2d",
                        fc1_mode="int8", wino=()):
     """One-stop build: fold -> calibrate -> quantize -> predict function.

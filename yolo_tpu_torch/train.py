@@ -15,15 +15,29 @@ by mAP50:95. ``--backbone yolov1`` trains the 24-conv model; ``--remat``
 activations in the backward pass, with the BN running statistics updated
 once a step.
 
-Not ported yet, and refused with a message: ``--mesh-data`` or
-``--mesh-model`` above 1, ``--remote``, ``--orbax-checkpoints`` and
-``--resume orbax``; ``--download-data`` needs a network. ``--remat`` and
-``--pretrained-backbone`` need ``--backbone resnet``.
+Parallelism: one process a device under ``torchrun`` (``python -m
+torch.distributed.run --nproc-per-node N -m yolo_tpu_torch.train ...``).
+``--mesh-data`` x ``--mesh-model`` must fill the world (``--mesh-data``
+defaults to the world over ``--mesh-model``); ``--batch-size`` is the
+global batch and must divide by ``--mesh-data``; each data rank loads its
+``batch-size / mesh-data`` images of the shuffled stream (JAX's
+``--remote`` keeps the batch per host instead). ``--remote`` is accepted
+for parity with JAX's flag and changes nothing: the process group is
+joined whenever torchrun started more than one rank, and ``--batch-size``
+stays the global batch. Only the first rank prints, logs and writes checkpoints
+(the gathered, unsharded state). ``--orbax-checkpoints`` adds an async
+``torch.distributed.checkpoint`` snapshot every epoch under
+``<checkpoint-dir>/dcp/<epoch>`` (the last 3 kept); ``--resume orbax``
+restores the latest.
+
+Refused with a message: ``--download-data`` needs a network; ``--remat``
+and ``--pretrained-backbone`` need ``--backbone resnet``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 from pathlib import Path
 
 
@@ -48,7 +62,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--save-frequency", type=int, default=10)
     p.add_argument("--resume", default=None,
-                   help="'true' for <checkpoint-dir>/yolo_latest.pth, or a .pth/.ckpt path")
+                   help="'true' for <checkpoint-dir>/yolo_latest.pth, 'orbax' for the latest "
+                        "DCP snapshot, or a .pth/.ckpt path")
     p.add_argument("--log-dir", default="runs")
     p.add_argument("--experiment-name", default=None)
     p.add_argument("--tensorboard", action="store_true",
@@ -60,13 +75,17 @@ def parse_args(argv=None):
     p.add_argument("--map-frequency", type=int, default=5)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--download-data", action="store_true", help="needs a network; refused")
-    p.add_argument("--remote", action="store_true", help="not yet ported")
+    p.add_argument("--remote", action="store_true",
+                   help="accepted for parity; changes nothing (every torchrun world of more "
+                        "than one rank joins the process group; --batch-size stays global)")
     p.add_argument("--use-amp", action="store_true", help="bf16 autocast for the forward")
     p.add_argument("--backbone", default="resnet", choices=["resnet", "yolov1"])
     p.add_argument("--pretrained-backbone", default=None,
                    help="path to a torchvision resnet50 .pth for transfer learning")
-    p.add_argument("--mesh-data", type=int, default=None, help="not yet ported above 1")
-    p.add_argument("--mesh-model", type=int, default=1, help="not yet ported above 1")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh axis size (default: the world / --mesh-model)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel mesh axis size for the FC head")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--image-size", type=int, default=448)
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -75,7 +94,9 @@ def parse_args(argv=None):
                    choices=["none", "block", "stage"],
                    help="recompute the ResNet's activations in the backward pass: 'block' "
                         "(bare --remat) around each bottleneck, 'stage' around each stage")
-    p.add_argument("--orbax-checkpoints", action="store_true", help="not yet ported")
+    p.add_argument("--orbax-checkpoints", action="store_true",
+                   help="also write async DCP snapshots every epoch "
+                        "(<checkpoint-dir>/dcp/<epoch>); resume with --resume orbax")
     return p.parse_args(argv)
 
 
@@ -83,15 +104,6 @@ def _refuse_unported(args) -> None:
     if args.backbone != "resnet" and (args.remat != "none" or args.pretrained_backbone):
         raise SystemExit("--remat and --pretrained-backbone (a torchvision resnet50) need "
                          "--backbone resnet")
-    unported = [
-        ((args.mesh_data or 1) > 1 or args.mesh_model > 1, "--mesh-data/--mesh-model above 1"),
-        (args.remote, "--remote"),
-        (args.orbax_checkpoints, "--orbax-checkpoints"),
-        (args.resume == "orbax", "--resume orbax (orbax snapshots)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise SystemExit(f"{what} is not yet ported to yolo_tpu_torch")
     if args.download_data:
         raise SystemExit("--download-data needs a network; put the VOC tree under --data-root")
 
@@ -100,6 +112,17 @@ def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
 
+    import torch
+
+    from yolo_tpu_torch.parallel.distributed import run_on_mesh
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available (pass --device cpu)")
+    return run_on_mesh(functools.partial(_train, args), args.device, args.mesh_data,
+                       args.mesh_model, args.batch_size)
+
+
+def _train(args, mesh, device, first: bool):
     import torch
 
     from yolo_tpu_torch.data import DataLoader, create_voc_datasets
@@ -118,14 +141,12 @@ def main(argv=None):
     from yolo_tpu_torch.training.optim import make_optimizer
     from yolo_tpu_torch.training.trainer import Trainer, train
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available (pass --device cpu)")
-
     checkpoint_dir = Path(args.checkpoint_dir)
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
     writer = None
-    if not args.no_tensorboard:
+    if mesh is not None:
+        print(f"Mesh: {mesh} (backend {torch.distributed.get_backend()})")
+    if first and not args.no_tensorboard:
         from datetime import datetime
 
         exp_name = args.experiment_name or ("yolo_" + datetime.now().strftime("%Y%m%d_%H%M%S"))
@@ -142,9 +163,15 @@ def main(argv=None):
     val_dataset = create_voc_datasets([("2012", "val")], root=args.data_root, augment=False,
                                       target_size=size, normalize_host=False)
     print_dataset_info(len(train_dataset), len(val_dataset), not args.no_augment)
-    train_loader = DataLoader(train_dataset, batch_size=args.batch_size, shuffle=True,
+    # Under a mesh each data rank loads its rows of every global batch; the
+    # validation loader yields global batches, which the Trainer slices.
+    shard, rank_batch = None, args.batch_size
+    if mesh is not None and mesh["data"].size() > 1:
+        shard = (mesh.get_local_rank("data"), mesh["data"].size())
+        rank_batch = args.batch_size // shard[1]
+    train_loader = DataLoader(train_dataset, batch_size=rank_batch, shuffle=True,
                               num_workers=args.num_workers, drop_last=True, seed=args.seed,
-                              worker_type=args.worker_type)
+                              worker_type=args.worker_type, shard_by_process=shard)
     # drop_last=False: every validation image counts (the ragged batch is masked).
     val_loader = DataLoader(val_dataset, batch_size=args.batch_size, shuffle=False,
                             num_workers=args.num_workers, drop_last=False,
@@ -177,15 +204,30 @@ def main(argv=None):
         args.lr_decay_factor, freeze_backbone=args.freeze_backbone)
     print_model_info(*count_params(model, args.freeze_backbone))
     trainer = Trainer(model, optimizer, schedule, lambda_coord=args.lambda_coord,
-                      lambda_noobj=args.lambda_noobj, device=device, use_amp=args.use_amp)
+                      lambda_noobj=args.lambda_noobj, device=device, use_amp=args.use_amp,
+                      mesh=mesh)
 
     start_epoch, best_val_loss, best_map = 1, None, None
-    resume_path = find_resume_path(args.resume, checkpoint_dir)
+    resume_path = None
+    if args.resume == "orbax":
+        from yolo_tpu_torch.training.checkpoints import restore_checkpoint_orbax
+
+        try:
+            step, metrics = restore_checkpoint_orbax(checkpoint_dir, trainer)
+        except FileNotFoundError as exc:
+            raise SystemExit(f"--resume orbax: {exc}")
+        start_epoch = step + 1
+        best_val_loss = metrics.get("best_val_loss", metrics.get("val_loss"))
+        best_map = metrics.get("best_map") or None
+        print(f"\nResumed from DCP snapshot {step}, starting at {start_epoch} "
+              f"(optimizer step {trainer.step})")
+    else:
+        resume_path = find_resume_path(args.resume, checkpoint_dir)
     if resume_path is not None:
         if resume_path.exists():
             print(f"\nResuming from checkpoint: {resume_path}")
             try:
-                meta = resume(resume_path, model, optimizer, schedule)
+                meta = resume(resume_path, model, optimizer, schedule, mesh)
             except ValueError as exc:
                 raise SystemExit(f"Cannot resume from {resume_path}: {exc}")
             start_epoch = int(meta.get("epoch", 0)) + 1
@@ -206,7 +248,7 @@ def main(argv=None):
             compute_map=args.compute_map, map_frequency=args.map_frequency,
             num_classes=args.num_classes, start_epoch=start_epoch,
             best_val_loss_init=best_val_loss, best_map_init=best_map,
-            profile_dir=args.profile,
+            profile_dir=args.profile, use_orbax=args.orbax_checkpoints,
         )
         log_hyperparameters(writer, hparams, final_metrics)
     finally:

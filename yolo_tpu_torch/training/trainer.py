@@ -8,16 +8,32 @@ BN statistics update in the forward (train mode). The loss parts stay on
 the device; the epoch loop syncs with the host only at ``log_interval`` and
 at the end of the epoch (the reference syncs five scalars every batch).
 ``validate(compute_map=True)`` adds the evaluator's keys
-(metrics/map.py). Mesh/data-parallel arguments belong to the parallelism
-slice.
+(metrics/map.py).
+
+With ``mesh`` (``parallel.make_mesh``, one process a device; JAX
+trainer.py:77-199, 240-297): the head is cut by ``parallel.shard_head``,
+the BN statistics are the global batch's (``parallel.sync_batch_norm``),
+and the model is wrapped in ``DistributedDataParallel`` over the data group
+(``broadcast_buffers=False``: the synchronized BN keeps the buffers equal;
+``gradient_as_bucket_view``: the gradients live in DDP's all-reduce
+buckets, not in a second copy).
+Every rank takes its rows of a global batch (``parallel.batch_slice``), or
+its loader yields them (``DataLoader(shard_by_process=...)``). The
+gradient is clipped on its global norm, every element counted once: the
+replicated gradients' squares plus the fc1/fc2 shards' squares summed over
+the model group, as optax's ``clip_by_global_norm`` sees the global
+arrays. Logged loss parts are averaged over the data group; ``validate``
+sums each part and the valid count over the data group.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from yolo_tpu_torch.data.loader import pad_batch
@@ -28,6 +44,8 @@ from yolo_tpu_torch.training.checkpoints import (
     save_best_map_model,
     save_best_model,
     save_checkpoint,
+    save_checkpoint_orbax,
+    wait_for_snapshot,
 )
 from yolo_tpu_torch.training.logging import (
     log_batch_metrics,
@@ -56,11 +74,14 @@ class Trainer:
         device: where the steps run.
         use_amp: bf16 autocast for the forward (the loss stays float32).
         clip_norm: global gradient-norm limit (reference 10.0).
+        mesh: a ``parallel.make_mesh`` mesh, or None for one device. The
+            optimizer must have no state yet (resume after building the
+            Trainer, through ``training.checkpoints.resume(..., mesh)``).
     """
 
     def __init__(self, model, optimizer, schedule, lambda_coord: float = 5.0,
                  lambda_noobj: float = 0.5, device: torch.device | str = "cuda",
-                 use_amp: bool = False, clip_norm: float = 10.0):
+                 use_amp: bool = False, clip_norm: float = 10.0, mesh=None):
         self.model, self.optimizer, self.schedule = model, optimizer, schedule
         self.lambda_coord, self.lambda_noobj = lambda_coord, lambda_noobj
         self.device = torch.device(device)
@@ -68,6 +89,26 @@ class Trainer:
         self.memory_format = (torch.channels_last if self.device.type == "cuda"
                               else torch.contiguous_format)
         self.params = [p for group in optimizer.param_groups for p in group["params"]]
+        self.mesh, self.forward_model, self.sharded = mesh, model, set()
+        self.last_grad_norm: Optional[torch.Tensor] = None
+        if mesh is not None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            from yolo_tpu_torch.parallel.mesh import (shard_head, sharded_parameters,
+                                                      sync_batch_norm)
+
+            if optimizer.state:
+                raise ValueError("Trainer(mesh=...) needs an optimizer without state; resume "
+                                 "after building the Trainer")
+            sync_batch_norm(shard_head(model, mesh), mesh)
+            names = sharded_parameters(model)
+            self.sharded = {id(p) for n, p in model.named_parameters() if n in names}
+            with warnings.catch_warnings():  # broadcast_buffers is deprecated in newer torch
+                warnings.simplefilter("ignore", FutureWarning)
+                self.forward_model = DistributedDataParallel(
+                    model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                    process_group=mesh.get_group("data"), broadcast_buffers=False,
+                    gradient_as_bucket_view=True)
 
     @property
     def step(self) -> int:
@@ -79,33 +120,94 @@ class Trainer:
         x = device_normalize(x) if x.dtype == torch.uint8 else x.float()
         return x.permute(0, 3, 1, 2).contiguous(memory_format=self.memory_format)
 
-    def _loss(self, images, targets, sample_mask=None):
+    def _rows(self, *arrays):
+        """This rank's rows of global batches (the batches themselves without a mesh)."""
+        if self.mesh is None:
+            return arrays
+        from yolo_tpu_torch.parallel.mesh import batch_slice
+
+        return tuple(batch_slice(self.mesh, a) for a in arrays)
+
+    def _loss(self, images, targets, sample_mask=None, model=None):
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.use_amp):
-            out = self.model(self._images(images))
+            out = (model or self.model)(self._images(images))
         targets = torch.as_tensor(targets).to(self.device, torch.float32, non_blocking=True)
         m = self.model
         return yolo_loss(out.float(), targets, S=m.S, B=m.B, C=m.num_classes,
                          lambda_coord=self.lambda_coord, lambda_noobj=self.lambda_noobj,
                          sample_mask=sample_mask)
 
-    def train_step(self, images, targets) -> Dict[str, torch.Tensor]:
+    def grad_norm(self) -> torch.Tensor:
+        """The global L2 norm of the gradients, each element counted once:
+        the fc1/fc2 shards' squares are summed over the model group."""
+        from yolo_tpu_torch.parallel.mesh import all_reduce_
+
+        norms = {False: [], True: []}
+        for p in self.params:
+            if p.grad is not None:
+                norms[id(p) in self.sharded].append(torch.linalg.vector_norm(p.grad, 2.0))
+        sq = [torch.stack(v).square().sum() if v else torch.zeros((), device=self.device)
+              for v in (norms[False], norms[True])]
+        group = self.mesh.get_group("model") if self.mesh is not None else None
+        return (sq[0] + all_reduce_(sq[1], group)).sqrt()
+
+    def _clip(self) -> torch.Tensor:
+        if not self.sharded:
+            return torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+        total = self.grad_norm()
+        coef = torch.clamp(self.clip_norm / (total + 1e-6), max=1.0)
+        for p in self.params:
+            if p.grad is not None:
+                p.grad.mul_(coef)
+        return total
+
+    def train_step(self, images, targets, local: bool = False) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch; returns the loss parts (device scalars).
 
-        The gradients stay in ``.grad`` (after clipping) until the next step.
+        Under a mesh the batch is the global one, of which this rank takes its
+        rows, or with ``local`` this rank's rows already. The gradients stay
+        in ``.grad`` (after clipping) until the next step, and the norm they
+        had before clipping in ``last_grad_norm``.
         """
+        if not local:
+            images, targets = self._rows(images, targets)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        total, parts = self._loss(images, targets)
+        total, parts = self._loss(images, targets, model=self.forward_model)
         total.backward()
-        torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+        self.last_grad_norm = self._clip()
         self.optimizer.step()
         self.schedule.step()
         return {k: v.detach() for k, v in parts.items()}
+
+    def _host_mean(self, totals: Dict[str, torch.Tensor], count: int) -> Dict[str, float]:
+        """Mean loss parts as floats, averaged over the data group."""
+        if self.mesh is None or self.mesh["data"].size() == 1:
+            return _to_host(totals, count)
+        from yolo_tpu_torch.parallel.mesh import all_reduce_
+
+        n_data = self.mesh["data"].size()
+        summed = all_reduce_(torch.stack([totals[k] for k in LOSS_KEYS]),
+                             self.mesh.get_group("data"))
+        return _to_host(dict(zip(LOSS_KEYS, summed / n_data)), count)
 
     @torch.no_grad()
     def eval_step(self, images, targets, sample_mask=None) -> Dict[str, torch.Tensor]:
         self.model.eval()
         return self._loss(images, targets, sample_mask)[1]
+
+    def _sharded_eval_step(self, images, targets, n_valid: int) -> Dict[str, torch.Tensor]:
+        """The loss parts of a global batch whose first ``n_valid`` rows are real."""
+        from yolo_tpu_torch.parallel.mesh import all_reduce_
+
+        mask = np.arange(images.shape[0]) < n_valid
+        images, targets, mask = self._rows(images, targets, mask)
+        mask = torch.from_numpy(mask).to(self.device)
+        parts = self.eval_step(images, targets, mask)
+        count = mask.sum().float()
+        sums = torch.stack([parts[k] for k in LOSS_KEYS]) * count.clamp(min=1.0)
+        sums = all_reduce_(torch.cat([sums, count[None]]), self.mesh.get_group("data"))
+        return dict(zip(LOSS_KEYS, sums[:-1] / sums[-1].clamp(min=1.0)))
 
     def train_epoch(self, dataloader, epoch: int, writer=None,
                     log_interval: int = 10) -> Dict[str, float]:
@@ -114,13 +216,14 @@ class Trainer:
         num_batches = 0
         start = time.time()
         n_loader = len(dataloader)
+        local = getattr(dataloader, "shard_by_process", None) is not None
         for batch_idx, (images, targets) in enumerate(dataloader):
-            parts = self.train_step(images, targets)
+            parts = self.train_step(images, targets, local=local)
             for k in LOSS_KEYS:
                 totals[k] += parts[k]
             num_batches += 1
             if (batch_idx + 1) % log_interval == 0:
-                host = _to_host(parts, 1)
+                host = self._host_mean(parts, 1)
                 print(
                     f"Epoch [{epoch}] Batch [{batch_idx + 1}/{n_loader}] "
                     f"Loss: {host['total']:.4f} "
@@ -130,7 +233,7 @@ class Trainer:
                 )
                 log_batch_metrics(writer, host, epoch, batch_idx, n_loader)
                 start = time.time()
-        return _to_host(totals, num_batches)
+        return self._host_mean(totals, num_batches)
 
     def validate(self, dataloader, compute_map: bool = False,
                  num_classes: Optional[int] = None) -> Dict[str, float]:
@@ -140,7 +243,10 @@ class Trainer:
         loader's batch size and masked out with ``sample_mask``
         (trainer.py:240-297). The mAP pass is ``evaluate_model``'s precise
         path at confidence 0.01 and NMS 0.4, under bf16 autocast with
-        ``use_amp``.
+        ``use_amp``. Under a mesh each rank evaluates its rows of the
+        (padded) global batch, and the parts' sums and the valid count are
+        all-reduced over the data group: a rank whose rows are all padding
+        adds 0.
         """
         totals = {k: torch.zeros((), device=self.device) for k in LOSS_KEYS}
         num_batches = 0
@@ -151,18 +257,22 @@ class Trainer:
             if full_batch is not None and n < full_batch:
                 images, targets, n = pad_batch(images, targets, full_batch)
                 mask = torch.arange(full_batch, device=self.device) < n
-            parts = self.eval_step(images, targets, mask)
+            if self.mesh is None:
+                parts = self.eval_step(images, targets, mask)
+            else:
+                parts = self._sharded_eval_step(images, targets, n)
             for k in LOSS_KEYS:
                 totals[k] += parts[k]
             num_batches += 1
-        results = _to_host(totals, num_batches)
+        results = _to_host(totals, num_batches)  # the same on every rank
 
         if compute_map:
             print("\n  Computing mAP metrics...")
             m = self.model
             map_results = evaluate_model(
                 m, dataloader, num_classes=num_classes or m.num_classes, conf_threshold=0.01,
-                nms_threshold=0.4, S=m.S, B=m.B, device=self.device, use_amp=self.use_amp)
+                nms_threshold=0.4, S=m.S, B=m.B, device=self.device, use_amp=self.use_amp,
+                mesh=self.mesh)
             for key in ("mAP50:95", "mAP50", "mAP75", "precision", "recall"):
                 results[key] = map_results[key]
             for key in ("mAP50:95_small", "mAP50:95_medium", "mAP50:95_large"):
@@ -186,14 +296,18 @@ def train(
     best_val_loss_init: Optional[float] = None,
     best_map_init: Optional[float] = None,
     profile_dir: Optional[str] = None,
+    use_orbax: bool = False,
 ) -> Dict[str, float]:
     """Epoch loop with the reference's checkpoint cadence (trainer.py:299-423).
 
     Saves yolo_latest.pth every epoch, yolo_epoch_{N}.pth every
     ``save_frequency`` epochs, yolo_best.pth when the validation loss
-    improves and yolo_best_map.pth when mAP50:95 does; ``profile_dir`` gets
-    a ``torch.profiler`` trace of the first epoch. Returns
-    {best_val_loss, final_train_loss[, best_mAP50:95]}.
+    improves and yolo_best_map.pth when mAP50:95 does (under a mesh, the
+    gathered state from the first rank); ``use_orbax`` adds an async DCP
+    snapshot every epoch, after the best-metric updates so that a resume
+    restores the best-so-far tracking (``checkpoints.save_checkpoint_orbax``);
+    ``profile_dir`` gets a ``torch.profiler`` trace of the first epoch.
+    Returns {best_val_loss, final_train_loss[, best_mAP50:95]}.
     """
     checkpoint_dir = Path(checkpoint_dir)
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
@@ -223,20 +337,26 @@ def train(
         print(f"Learning rate: {lr:.6f}")
         log_epoch_metrics(writer, train_losses, val_losses, lr, epoch)
 
+        mesh = trainer.mesh
         save_checkpoint(checkpoint_dir / "yolo_latest.pth", epoch, model, optimizer,
-                        trainer.schedule, train_losses, val_losses)
+                        trainer.schedule, train_losses, val_losses, mesh)
         if epoch % save_frequency == 0:
             save_checkpoint(checkpoint_dir / f"yolo_epoch_{epoch}.pth", epoch, model,
-                            optimizer, trainer.schedule, train_losses, val_losses)
+                            optimizer, trainer.schedule, train_losses, val_losses, mesh)
         if val_losses["total"] < best_val_loss:
             best_val_loss = val_losses["total"]
             save_best_model(checkpoint_dir / "yolo_best.pth", epoch, model, optimizer,
-                            val_losses, "val_loss", best_val_loss)
+                            val_losses, "val_loss", best_val_loss, mesh)
         if "mAP50:95" in val_losses and val_losses["mAP50:95"] > best_map:
             best_map = val_losses["mAP50:95"]
             save_best_map_model(checkpoint_dir / "yolo_best_map.pth", epoch, model,
-                                optimizer, val_losses, best_map)
+                                optimizer, val_losses, best_map, mesh)
+        if use_orbax:
+            save_checkpoint_orbax(checkpoint_dir, epoch, trainer, {
+                "train_loss": train_losses["total"], "val_loss": val_losses["total"],
+                "best_val_loss": best_val_loss, "best_map": best_map})
         final_train_loss = train_losses["total"]
+    wait_for_snapshot(trainer)
 
     results = {"best_val_loss": best_val_loss, "final_train_loss": final_train_loss}
     if best_map > 0:
