@@ -253,6 +253,17 @@ on the int8 conv kernel). Phases:
 35. torchrun --standalone --nproc-per-node 2 (gloo on the one card):
    train --mesh-data 2 --orbax-checkpoints, --resume orbax, train
    --mesh-model 2, evaluate --mesh-data 2, then predict on the .pth.
+36. (run right after phase 28, on phase 27's engine) the AOT artifact:
+   save_compiled_engine's two halves on the full-width default int8 engine
+   at batch 16, uint8 wire (export s, save s, MB), load_compiled_engine
+   (s); one eager call of the loaded program launches the stem front,
+   the int8 conv and NMS exactly (1, 58, 1) times (counts zeroed just
+   before); its CUDA-graph replay == the live engine's graph replay bit for
+   bit on two seeded image sets, the replay's kernels by torch.profiler,
+   both replays' ms and both eager calls' ms (CUDA events, in turns); host
+   us a call of each of the three custom ops against its wrapper, under
+   inference_mode as the engines run them; a CPU-device load is refused;
+   serve --compiled returns a GraphedPredict with the bucket (16,).
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
@@ -3488,6 +3499,126 @@ def phase_server(fn, q, thr: float, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 36
+def phase_aot(fn, q, thr: float, card: str) -> tuple:
+    """The AOT artifact of phase 27's full-width default int8 engine (its q
+    and threshold), batch 16, uint8 wire: export, save, size and load; one
+    eager call of the loaded program launches the stem front, the int8 conv
+    and NMS (1, 58, 1) times (counts zeroed just before); its CUDA graph
+    replay == the live engine's bit for bit on two image sets, and both
+    replay ms and eager ms (CUDA events, in turns); the host us a call of
+    each kernel's custom op against its wrapper; a CPU-device load is
+    refused; serve
+    --compiled builds a GraphedPredict with the one bucket (16,). The
+    artifact lives in a temporary directory removed at the end."""
+    import torch
+
+    from yolo_tpu_torch import serve
+    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.ops.decode import decode_predictions
+    from yolo_tpu_torch.serving import cuda_stem, library
+    from yolo_tpu_torch.serving.engine import kernel_conv
+    from yolo_tpu_torch.serving.export import (export_compiled_engine, load_compiled_engine,
+                                               write_compiled_engine)
+    from yolo_tpu_torch.serving.graphs import GraphedPredict
+
+    dev = torch.device("cuda")
+    batch = SLICE_BATCH
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as tmp:
+        path = Path(tmp) / "engine.pt2"
+        t0 = time.perf_counter()
+        exported, meta = export_compiled_engine(q, S, B, C, batch_size=batch,
+                                                conf_threshold=thr, nms_threshold=IOU_T,
+                                                image_size=SIZE)
+        t1 = time.perf_counter()
+        write_compiled_engine(path, exported, meta)
+        t2 = time.perf_counter()
+        del exported
+        predict, meta = load_compiled_engine(path)
+        t3 = time.perf_counter()
+        size_mb = path.stat().st_size / 1e6
+        if (meta["batch_size"], meta["platforms"], meta["dtype"]) != (batch, ["cuda"], "uint8"):
+            raise AssertionError(f"[36] unexpected meta {meta}")
+
+        first, second = _uint8_batch(90, batch), _uint8_batch(91, batch)
+        torch.cuda.synchronize()
+        _zero_counts()
+        predict(first)
+        torch.cuda.synchronize()
+        launches = _counts()
+        if launches != SERVED_LAUNCHES:
+            raise AssertionError(f"[36] one eager call of the loaded program launched "
+                                 f"(stem, int8 conv, NMS) {launches}, not {SERVED_LAUNCHES}")
+
+        live = GraphedPredict(lambda images: fn(q, images, thr, IOU_T), dev)
+        aot = GraphedPredict(predict, dev)
+        kept = []
+        for images in (first, second):
+            want = [t.clone() for t in live(images)]
+            got = aot(images)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("[36] the AOT artifact's replay differs from the live "
+                                     "engine's")
+            kept.append(int(want[3].sum()))
+        replays = _replay_launches(aot, first)
+        run = {"live": lambda: live(first), "aot": lambda: aot(first)}
+        ms = {"live": [], "aot": []}
+        for turn in ("live", "aot", "aot", "live"):
+            ms[turn].append(cuda_ms(run[turn], iters=50))
+
+        # The custom op's dispatch against the direct wrapper call, host time.
+        s_img = q["s_img"]
+        qc = q["layers"][0][1]["conv1"]
+        x = torch.randint(-127, 128, (batch, 112, 112, qc["wq"].shape[2]), dtype=torch.int8,
+                          device=dev, generator=torch.Generator(device=dev).manual_seed(92))
+        grid = torch.from_numpy(np.random.default_rng(93).normal(
+            size=(batch, S, S, B * 5 + C)).astype(np.float32)).to(dev)
+        dets = decode_predictions(grid, S, B, C, 0.0)
+        pairs = {
+            "stem": (lambda: cuda_stem.quant_s2d(first, s_img),
+                     lambda: torch.ops.yolo_tpu_torch.quant_s2d(first, s_img)),
+            "int8 conv (layer1 1x1)": (lambda: kernel_conv(x, qc, 1, 0, "relu"),
+                                       lambda: library.aot_conv(x, qc, 1, 0, "relu")),
+            "NMS": (lambda: cuda_nms.nms(dets, IOU_T), lambda: library.aot_nms(dets, IOU_T)),
+        }
+        with torch.inference_mode():  # as the engine and the loaded program run them
+            host = {name: (host_us(wrapper), host_us(op)) for name, (wrapper, op) in
+                    pairs.items()}
+        eager = {"live": lambda: fn(q, first, thr, IOU_T), "aot": lambda: predict(first)}
+        eager_ms = {"live": [], "aot": []}
+        for turn in ("live", "aot", "aot", "live"):
+            eager_ms[turn].append(cuda_ms(eager[turn], iters=10))
+
+        try:
+            load_compiled_engine(path, "cpu")
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise AssertionError("[36] a CPU-device load of the CUDA artifact was not refused")
+        served, buckets, image_size = serve.build_predict(serve.parse_args(
+            ["--compiled", str(path)]))
+        if not isinstance(served, GraphedPredict) or buckets != (batch,) or image_size != SIZE:
+            raise AssertionError(f"[36] serve --compiled gave {type(served).__name__}, buckets "
+                                 f"{buckets}, image size {image_size}")
+    log(f"[36] {card}: AOT artifact of the full-width default int8 engine (batch {batch}, "
+        f"uint8, conf {thr:.6g}, NMS {IOU_T}): export {t1 - t0:.2f} s, save {t2 - t1:.2f} s, "
+        f"{size_mb:.1f} MB, load {t3 - t2:.2f} s; one eager call launches (stem, int8 conv, "
+        f"NMS) {launches}; replay == the live graph bit for bit on 2 image sets "
+        f"({kept[0]}, {kept[1]} kept); {replays}")
+    log(f"[36] {card}: replay ms/batch in turns live, aot, aot, live: {ms['live'][0]:.4f}, "
+        f"{ms['aot'][0]:.4f}, {ms['aot'][1]:.4f}, {ms['live'][1]:.4f} (CUDA events)")
+    log(f"[36] {card}: eager call ms/batch in turns live, aot, aot, live: "
+        f"{eager_ms['live'][0]:.4f}, {eager_ms['aot'][0]:.4f}, {eager_ms['aot'][1]:.4f}, "
+        f"{eager_ms['live'][1]:.4f} (CUDA events; the graph replays pay no dispatch)")
+    log(f"[36] {card}: host us a call under inference_mode, wrapper vs custom op: " + ", ".join(
+        f"{name} {w:.1f} vs {o:.1f}" for name, (w, o) in host.items()))
+    log(f"[36] a CPU-device load is refused ({refused}); serve --compiled: GraphedPredict, "
+        f"buckets {buckets}")
+    del live, aot, served, predict
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------- phase 29
 def _yolov1_model():
     """The full-width 24-conv YOLOv1 (448x448, 20 classes), seeded, on the card."""
@@ -4569,6 +4700,7 @@ def main() -> None:
     timed(26, phase_accuracy_gate)
     fn, q, thr = timed(27, phase_graphs, card)
     timed(28, phase_server, fn, q, thr, card)
+    aot_launches = timed(36, phase_aot, fn, q, thr, card)
     del fn, q
     torch.cuda.empty_cache()
     y24_launches = timed(29, phase_yolov1_slice, card)
@@ -4585,6 +4717,7 @@ def main() -> None:
         f"{sync_reduces} BN all-reduces; sharded engine (stem, int8 conv, NMS) "
         f"{par_serve[0]} a batch; "
         f"sharded evaluator NMS {par_serve[1]} for 2 batches")
+    log(f"[36] AOT artifact launches (stem, int8 conv, NMS): {aot_launches} an eager call")
     log(f"[24] evaluator path launches: NMS {eval_nms} for {len(eval_batches())} metric "
         f"batches; CLI runs (stem, int8 conv, NMS): {eval_launches}")
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))

@@ -12,6 +12,7 @@ the refusals, and ``overfit_check``, ``quant_accuracy`` and ``bench_eval``
 at a tiny size with ``--device cpu``.
 """
 
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -78,7 +79,8 @@ def setup(tmp_path_factory):
     ckpt.parent.mkdir()
     model = detecting_model()
     torch.save({"epoch": 3, "model_state_dict": model.state_dict()}, ckpt)
-    return root, ckpt, model
+    yield root, ckpt, model
+    shutil.rmtree(root, ignore_errors=True)  # the checkpoint and engine are ~300 MB
 
 
 def _cli(root, ckpt, *extra):

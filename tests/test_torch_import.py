@@ -76,14 +76,18 @@ def test_package_import_is_lazy():
 NOT_YET_PORTED = set()
 
 
-def _jax_root_all() -> list:
-    """``yolo_tpu.__all__``, read from the source (importing it imports jax)."""
-    tree = ast.parse((REPO / "yolo_tpu" / "__init__.py").read_text())
+def _jax_all(init: Path) -> list:
+    """A JAX package's ``__all__``, read from the source (importing it imports jax)."""
+    tree = ast.parse(init.read_text())
     for node in tree.body:
         if isinstance(node, ast.Assign) and any(
                 getattr(target, "id", None) == "__all__" for target in node.targets):
             return list(ast.literal_eval(node.value))
-    raise AssertionError("yolo_tpu/__init__.py has no __all__")
+    raise AssertionError(f"{init} has no __all__")
+
+
+def _jax_root_all() -> list:
+    return _jax_all(REPO / "yolo_tpu" / "__init__.py")
 
 
 def test_root_exports_every_ported_jax_root_name():
@@ -106,6 +110,51 @@ def test_root_exports_every_ported_jax_root_name():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "[] [] [] False False"
+
+
+# Names of the JAX subpackages' __all__ that the port does not export, each
+# with the reason.
+NOT_PORTED = {
+    "ops": {"pallas_nms": "ops.nms runs csrc/nms.cu"},
+    "models": {"init_model": "flax init; create_model initializes"},
+    "training": {"TrainState": "flax's state pytree; the Trainer holds the module and "
+                               "optimizer"},
+    "parallel": {name: "NamedSharding helpers; DDP and DeviceMesh replace them"
+                 for name in ("batch_sharding", "param_shardings", "put_sharded",
+                              "replicated", "state_shardings")},
+}
+SUBPACKAGES = ("training", "utils", "ops", "serving", "models", "parallel")
+
+
+@pytest.mark.parametrize("package", SUBPACKAGES)
+def test_subpackage_exports_every_ported_jax_name(package):
+    """``yolo_tpu_torch.<package>`` exports its JAX counterpart's ``__all__``
+    but for the names in NOT_PORTED, which it does not export."""
+    import importlib
+
+    names = _jax_all(REPO / "yolo_tpu" / package / "__init__.py")
+    skipped = NOT_PORTED.get(package, {})
+    assert set(skipped) <= set(names), sorted(set(skipped) - set(names))
+    port = importlib.import_module(f"yolo_tpu_torch.{package}")
+    ported = [n for n in names if n not in skipped]
+    assert [n for n in ported if n not in port.__all__] == []
+    assert [n for n in ported if getattr(port, n, None) is None] == []
+    assert sorted(set(port.__all__) & set(skipped)) == []
+
+
+def test_lazy_subpackages_import_nothing():
+    proc = _run(
+        "import sys, yolo_tpu_torch.training, yolo_tpu_torch.utils\n"
+        "print(sorted(m for m in ('PIL', 'matplotlib', 'torch', 'triton', 'jax')"
+        " if m in sys.modules))\n"
+        "from yolo_tpu_torch.training import Trainer\n"
+        "from yolo_tpu_torch.utils import extract_objectness_scores\n"
+        "print(Trainer.__module__, extract_objectness_scores.__module__,"
+        " 'matplotlib' in sys.modules)\n"
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split("\n")[:2] == [
+        "[]", "yolo_tpu_torch.training.trainer yolo_tpu_torch.utils.visualization False"]
 
 
 def _imports(tree, top_level_only):

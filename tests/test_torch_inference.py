@@ -14,6 +14,7 @@ skipped for the next one.
 
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -56,6 +57,14 @@ def randomize(variables):
     grid_bias[..., [2, 3, 7, 8]] += np.float32(0.4)
     grid_bias[..., 10:13] += np.float32(1.0)
     return variables
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, emptied at the test's end: the checkpoints written
+    here are hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ import io
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -390,18 +391,29 @@ def test_server_float_wire_normalizes_on_the_host(stack):
 
 
 # ------------------------------------------------------------------- the CLI
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, emptied at the test's end: a checkpoint written here
+    is ~250 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def artifact(stack, tmp_path_factory):
     path = tmp_path_factory.mktemp("serve") / "engine.npz"
     export.save_engine(path, stack["qp"], S=7, B=2, num_classes=20)
-    return path
+    yield path
+    path.unlink()
 
 
 def test_serve_cli_builds_the_engine_from_an_artifact_on_the_cpu(stack, artifact):
     args = serve.parse_args(["--engine", str(artifact), "--device", "cpu", "--image-size",
                              str(SIZE), "--buckets", "1,2",
                              f"--conf-threshold={stack['conf']!r}"])
-    assert args.port == 8000 and args.nms_threshold == NMS_T
+    # An unset threshold is None (an AOT artifact's baked one is noted only
+    # against an explicit flag); the engine resolves it to the default, 0.4.
+    assert args.port == 8000 and args.nms_threshold is None and serve.DEFAULT_NMS == NMS_T
     predict, buckets, image_size = serve.build_predict(args)
     assert buckets == (1, 2) and image_size == SIZE
     assert not isinstance(predict, GraphedPredict)
@@ -433,11 +445,15 @@ def test_serve_cli_builds_the_engine_from_a_checkpoint_on_the_cpu(stack, tmp_pat
         assert torch.equal(a, w)
 
 
-@pytest.mark.parametrize("flags", [["--compiled", "aot.npz"],
-                                   ["--save-compiled", "aot.npz"]])
+@pytest.mark.parametrize("flags", [["--compiled", "ART"],
+                                   ["--compiled", "ART", "--save-compiled", "aot.pt2"]])
 def test_serve_cli_refuses_the_aot_artifact(artifact, flags):
-    argv = flags if flags[0] == "--compiled" else ["--engine", str(artifact), *flags]
-    with pytest.raises(SystemExit, match=r"not yet ported to yolo_tpu_torch \(ROADMAP"):
+    """--compiled takes only an AOT artifact (not the plain engine .npz), and
+    --save-compiled needs an engine built here, not a recorded one."""
+    argv = [str(artifact) if f == "ART" else f for f in flags] + ["--device", "cpu"]
+    match = ("not a yolo-tpu AOT engine artifact" if len(flags) == 2
+             else r"--save-compiled needs a live or frozen engine build \(not --compiled\)")
+    with pytest.raises(SystemExit, match=match):
         serve.main(argv)
 
 

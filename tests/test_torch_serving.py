@@ -18,6 +18,8 @@ are made with numpy from seeds.
   ``save_engine``, and the predict CLI's int8 flags on the CPU.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +87,14 @@ def assert_trees(got, want, exact=True, rtol=0.0, path=""):
             np.testing.assert_array_equal(g, w, err_msg=path)
         else:
             np.testing.assert_allclose(g, w, rtol=rtol, atol=0, err_msg=path)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, emptied at the test's end: the checkpoints and
+    engine artifacts written here are tens to hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,8 @@ same q-params (its kernel wrappers run the plain twins on CPU tensors):
   stage-chain hook shadowing its stage's ``conv2_s1`` hooks, and the
   refusal of names that are not stride-1 3x3 convs.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -64,6 +66,14 @@ def _build(stages, size, seed, wino, n_calib):
     qj = jquantize(jfolded, act_max, wino=wino)
     return {"port": port, "calib": calib, "jfolded": jfolded, "act_max": act_max, "qj": qj,
             "qp": to_torch(qj), "size": size}
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, emptied at the test's end: the checkpoints and
+    engine artifacts written here are tens to hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ to its largest element:
 """
 
 import math
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -76,6 +77,14 @@ def _batch(seed=0, n=BATCH):
         np.testing.assert_array_equal(t, jax_encode_target(boxes, cls))
         targets.append(t)
     return images, np.stack(targets)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, emptied at the test's end: the checkpoints written
+    here are hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -59,6 +59,14 @@ from yolo_tpu_torch.training.trainer import LOSS_KEYS, Trainer
 SIZE, BATCH = 64, 2
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, emptied at the test's end: the checkpoints and
+    engine artifacts written here are tens to hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def variables():
     model = JYOLOv1(num_classes=20, S=7, B=2)

@@ -10,11 +10,12 @@ from yolo_tpu_torch.ops.boxes import (
     EPSILON,
     box_area,
     center_to_corners,
+    corners_to_center,
     iou_cellwise,
     iou_pairwise,
 )
 from yolo_tpu_torch.ops.cuda_nms import nms, nms_reference
-from yolo_tpu_torch.ops.decode import Detections, decode_predictions
+from yolo_tpu_torch.ops.decode import Detections, decode_ground_truth, decode_predictions
 from yolo_tpu_torch.ops.loss import YOLOLoss, yolo_loss
 from yolo_tpu_torch.ops.nms import batched_nms
 
@@ -25,6 +26,8 @@ __all__ = [
     "batched_nms",
     "box_area",
     "center_to_corners",
+    "corners_to_center",
+    "decode_ground_truth",
     "decode_predictions",
     "iou_cellwise",
     "iou_pairwise",

@@ -131,6 +131,32 @@ def _check(dets: Detections, K: int) -> None:
         raise ValueError(f"nms: unsupported device {device}")
 
 
+def keep_args(dets: Detections, iou_threshold: float, eps: float) -> tuple:
+    """The checked operands of one keep-mask computation: the four fields as
+    (n, K) rows, then ``iou_threshold`` and ``eps`` rounded to the scores'
+    dtype, as the JAX compare rounds them."""
+    K = dets.scores.shape[-1]
+    _check(dets, K)
+    rnd = np.float32 if dets.scores.dtype == torch.float32 else np.float64
+    return (
+        dets.boxes.reshape(-1, K, 4),
+        dets.scores.reshape(-1, K),
+        dets.class_ids.reshape(-1, K),
+        dets.valid.reshape(-1, K),
+        float(rnd(iou_threshold)),
+        float(rnd(eps)),
+    )
+
+
+def keep_mask(boxes, scores, class_ids, valid, iou_threshold: float,
+              eps: float) -> torch.Tensor:
+    """(n, K) keep mask of :func:`keep_args`' operands: the kernel on CUDA,
+    :func:`nms_reference` on the CPU."""
+    if scores.device.type == "cuda":
+        return _launch(boxes, scores, class_ids, valid, iou_threshold, eps)
+    return nms_reference(boxes, scores, class_ids, valid, iou_threshold, eps)
+
+
 def nms(
     dets: Detections, iou_threshold: float = 0.4, eps: float = EPSILON
 ) -> Detections:
@@ -142,17 +168,6 @@ def nms(
     ``eps`` are rounded to the scores' dtype, as the JAX compare rounds them.
     On CUDA the kernel runs; on the CPU, :func:`nms_reference`.
     """
-    K = dets.scores.shape[-1]
-    _check(dets, K)
-    rnd = np.float32 if dets.scores.dtype == torch.float32 else np.float64
-    args = (
-        dets.boxes.reshape(-1, K, 4),
-        dets.scores.reshape(-1, K),
-        dets.class_ids.reshape(-1, K),
-        dets.valid.reshape(-1, K),
-        float(rnd(iou_threshold)),
-        float(rnd(eps)),
-    )
-    keep = _launch(*args) if dets.scores.device.type == "cuda" else nms_reference(*args)
+    keep = keep_mask(*keep_args(dets, iou_threshold, eps))
     # keep implies valid: only valid candidates are ever kept.
     return dets._replace(valid=keep.reshape(dets.scores.shape))

@@ -13,7 +13,11 @@
   their kernel ``csrc/int8_wino.cu`` with its ablation modes;
 - ``engine``: the int8-resident forward with the decode + NMS tail;
 - ``export``: ``.npz`` engine artifacts, interchangeable with the JAX
-  package's;
+  package's, and the AOT artifact: the whole served graph recorded by
+  ``torch.export`` into a ``.pt2`` (``save_compiled_engine``,
+  ``load_compiled_engine``);
+- ``library``: the stem front, the int8 conv and NMS as ``torch.library``
+  custom ops, which the AOT artifact's program calls;
 - ``graphs``: one captured CUDA graph per batch shape of a serving
   callable (``GraphedPredict``), the counterpart of JAX's per-shape jit;
 - ``batcher``: ``RequestBatcher``, single-image requests coalesced into
@@ -23,13 +27,14 @@
 
 Serving mode is opt-in: ``YOLOInference(..., optimize="int8")``.
 ``engine.make_sharded_int8_engine_fn`` serves a global batch over the data
-axis of a ``parallel.make_mesh`` mesh. The AOT artifact is not ported yet.
+axis of a ``parallel.make_mesh`` mesh.
 """
 
 from yolo_tpu_torch.serving.batcher import RequestBatcher
 from yolo_tpu_torch.serving.cuda_bottleneck import block_int8, chain_int8
 from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward, make_int8_engine_fn
-from yolo_tpu_torch.serving.export import load_engine, save_engine
+from yolo_tpu_torch.serving.export import (load_compiled_engine, load_engine,
+                                           save_compiled_engine, save_engine)
 from yolo_tpu_torch.serving.fold import fold_flagship, folded_forward
 from yolo_tpu_torch.serving.quant import ACT_POINTS, calibrate_activations, quantize_folded
 from yolo_tpu_torch.serving.server import YOLOServer
@@ -45,8 +50,10 @@ __all__ = [
     "fold_flagship",
     "folded_forward",
     "int8_forward",
+    "load_compiled_engine",
     "load_engine",
     "make_int8_engine_fn",
     "quantize_folded",
+    "save_compiled_engine",
     "save_engine",
 ]
