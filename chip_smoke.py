@@ -60,7 +60,7 @@ on the int8 conv kernel). Phases:
    autocast step, and a "stats"-mode step that launches only the stats
    kernel;
 9. entry points: the train CLI on a synthetic VOC tree (1 epoch, then
-   --resume true for a second), and bench_train --fused-bn;
+   --resume true for a second);
 10. timing (information only): the host's cost of one BN layer per mode;
    then train step ms, img/s, idle share, the host's time to issue a step,
    synchronizing calls per step, top kernels and peak memory for fused_bn
@@ -102,8 +102,7 @@ on the int8 conv kernel). Phases:
    kernel once, the conv kernel 18 times and the chain kernel 4 times
    (counts zeroed just before); its grid equals the default engine's bit for
    bit and its keep masks are equal; then every identity block through
-   block_int8 (1 / 22 / 12 launches), the same grid; then
-   python -m yolo_tpu_torch.bench_int8 --variants int8,chain;
+   block_int8 (1 / 22 / 12 launches), the same grid;
 16. timing (information only): default vs chained int8 img/s at batch 1,
    16, 64 and 256, in turns, with the idle share;
 17. Winograd conv (csrc/int8_wino.cu: a tap pass, then a tap GEMM on the
@@ -122,8 +121,7 @@ on the int8 conv kernel). Phases:
    zeroed just before); its grid equals the same engine's with the twin for
    every Winograd conv, bit for bit, with equal keep masks, and correlates
    with the default engine's; save_engine -> a fresh engine reinstalls the
-   hooks and gives identical detections; predict --int8 --engine <it>; then
-   python -m yolo_tpu_torch.bench_int8 --variants int8,wino;
+   hooks and gives identical detections; predict --int8 --engine <it>;
 19. timing (information only): default vs wino (all 16) vs wino
    (head_conv1, 3, 4) img/s at batch 1, 16, 64 and 256, in turns;
 20. fused Adam update (csrc/adam_update.cu) vs its plain twin, bit for bit,
@@ -169,10 +167,6 @@ on the int8 conv kernel). Phases:
    yolo_tpu_torch.train --compute-map --map-frequency 1 at --image-size 64,
    resumed from a model whose fc2 bias detects the tree's centred dogs,
    must write yolo_best_map.pth;
-25. timing (information only): python -m yolo_tpu_torch.bench_eval at
-   batch 16 and 64 (4 batches), fp32 and int8, fast and precise: img/s,
-   the tail's device and wall ms a batch, compute()'s seconds, the idle
-   share, beside the card's name and power limit;
 26. accuracy gate: python -m yolo_tpu_torch.quant_accuracy --chain at its
    defaults (1500 bf16 steps on one synthetic batch at 224x224): the
    trained model, the default int8 engine and the chained engine must
@@ -1190,8 +1184,7 @@ def _write_voc(root: Path, n: int = 4, centered: bool = False) -> None:
 def phase_train_entry_points() -> None:
     import torch
 
-    from yolo_tpu_torch import bench_train, train
-    from yolo_tpu_torch.ops import fused_bn as fb
+    from yolo_tpu_torch import train
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         tmp = Path(tmp)
@@ -1219,13 +1212,6 @@ def phase_train_entry_points() -> None:
         log(f"[9] --resume true --epochs 2: epoch 2 from step {first} to {2 * first} "
             f"(schedule and Adam) ({time.perf_counter() - t0:.1f} s)")
         del ck
-        before = fb.LAUNCHES["stats"]
-        bench_train.main(["--batch", str(SLICE_BATCH), "--fused-bn", "--data-root",
-                          str(tmp / "voc"), "--num-workers", "2"])
-        if fb.LAUNCHES["stats"] <= before:
-            raise AssertionError("bench_train --fused-bn did not launch the stats kernel")
-        log(f"[9] python -m yolo_tpu_torch.bench_train --batch {SLICE_BATCH} --fused-bn: "
-            f"stats kernel launched {fb.LAUNCHES['stats'] - before} times")
     torch.cuda.empty_cache()
 
 
@@ -1992,17 +1978,6 @@ def phase_chain_slice(model):
             f"{launches[name][1]}, chain {launches[name][2]}, block {launches[name][3]}, NMS "
             f"{launches[name][4]}; grid == the default int8 engine's bit for bit; "
             f"{int(dets.valid.sum())} kept, keep masks and detections equal")
-
-    cmd = [sys.executable, "-m", "yolo_tpu_torch.bench_int8", "--batch", str(SLICE_BATCH),
-           "--variants", "int8,chain", "--chain-stages", "1,2,3,4"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"bench_int8 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    for line in proc.stdout.strip().splitlines():
-        log(f"[15]   {line}")
-    log(f"[15] python -m yolo_tpu_torch.bench_int8 {' '.join(cmd[3:])}: exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
     return chained, default, q, thr, launches
 
 
@@ -2371,17 +2346,6 @@ def phase_wino_slice(model):
             raise AssertionError(f"predict --engine <wino>: wrote {written}, launches {grew}")
         log(f"[18] python -m yolo_tpu_torch.predict --int8 --engine <wino artifact>: wrote 4 "
             f"images, launches stem/conv/wino/NMS {grew}")
-
-    cmd = [sys.executable, "-m", "yolo_tpu_torch.bench_int8", "--batch", str(SLICE_BATCH),
-           "--variants", "int8,wino"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"bench_int8 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    for line in proc.stdout.strip().splitlines():
-        log(f"[18]   {line}")
-    log(f"[18] python -m yolo_tpu_torch.bench_int8 {' '.join(cmd[3:])}: exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
     del engine
     return q, thr, launches
 
@@ -2947,34 +2911,6 @@ def phase_eval_slice() -> dict:
     del model
     torch.cuda.empty_cache()
     return launches
-
-
-# ---------------------------------------------------------------- phase 25
-EVAL_TIMING_BATCHES = 4
-
-
-def phase_eval_timing(card: str) -> dict:
-    import torch
-
-    from yolo_tpu_torch import bench_eval
-
-    out = {}
-    for batch in (SLICE_BATCH, 64):
-        for int8 in (False, True):
-            for precise in (False, True):
-                r = bench_eval.run(batch, EVAL_TIMING_BATCHES, SIZE, precise=precise, int8=int8)
-                out[(batch, int8, precise)] = r
-                torch.cuda.empty_cache()
-        for int8 in (False, True):
-            fast, prec = out[(batch, int8, False)], out[(batch, int8, True)]
-            log(f"[25] {card}: eval {'int8' if int8 else 'fp32'}, batch {batch}: fast "
-                f"{fast['img_s']:.1f} img/s, precise {prec['img_s']:.1f} img/s "
-                f"({fast['img_s'] / prec['img_s']:.2f}x); tail a batch fast "
-                f"{fast['tail_ms']:.3f} ms wall / {fast['tail_device_ms']} ms device, precise "
-                f"{prec['tail_ms']:.3f} ms wall / {prec['tail_device_ms']} ms device; compute() "
-                f"{fast['compute_s']:.4f} / "
-                f"{prec['compute_s']:.4f} s; idle fast {fast['idle']} precise {prec['idle']}")
-    return out
 
 
 # ---------------------------------------------------------------- phase 26
@@ -4696,7 +4632,6 @@ def main() -> None:
                             timed(23, phase_bf16_bottleneck, card)),
     }
     eval_nms, eval_launches = timed(24, lambda: (phase_eval_parity(), phase_eval_slice()))
-    timed(25, phase_eval_timing, card)
     timed(26, phase_accuracy_gate)
     fn, q, thr = timed(27, phase_graphs, card)
     timed(28, phase_server, fn, q, thr, card)

@@ -1065,3 +1065,148 @@ def test_batcher_over_graphs_equals_the_padded_bucket_call(graph_stack):
     for i, g in enumerate(got):
         for a, w in zip(g, want):
             np.testing.assert_array_equal(a, w[i])
+
+
+# ------------------------------------------------------------ spans in graphs
+@pytest.fixture(scope="module")
+def flagship_engine():
+    """The full-width int8 engine (ResNet-50, 448x448) on the card, its
+    median-score threshold and a uint8 batch of 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl
+
+    dev = torch.device("cuda")
+    model = create_model("resnet", 20, 7, 2, device=dev, image_size=448,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    r = np.random.default_rng(60)
+    calib = torch.from_numpy(r.normal(size=(2, 448, 448, 3)).astype(np.float32)).to(dev)
+    fn, q = build_int8_predict(model, [calib], impl=default_impl())
+    del model
+    images = torch.from_numpy(r.integers(0, 256, size=(16, 448, 448, 3), dtype=np.uint8))
+    conf = float(fn(q, images.to(dev), -1e30, 2.0).scores.float().median())
+    return fn, q, conf, images.pin_memory()
+
+
+def _graph_nodes(monkeypatch, capture):
+    """Nodes of every CUDA graph ``capture()`` makes (kept after capture and
+    counted by the driver's ``cuGraphGetNodes``)."""
+    import ctypes
+
+    made, real = [], torch.cuda.CUDAGraph
+
+    def kept_graph():
+        g = real(keep_graph=True)
+        made.append(g)
+        return g
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", kept_graph)
+    try:
+        capture()
+    finally:
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", real)
+    driver = ctypes.CDLL("libcuda.so.1")
+    counts = []
+    for g in made:
+        n = ctypes.c_size_t(0)
+        assert driver.cuGraphGetNodes(ctypes.c_void_p(g.raw_cuda_graph()), None,
+                                      ctypes.byref(n)) == 0
+        counts.append(n.value)
+    return counts
+
+
+def test_graph_captured_with_tracing_off_has_the_plain_capture_nodes(flagship_engine,
+                                                                     monkeypatch):
+    """Tracing off: GraphedPredict's one graph has the nodes of the callable
+    captured plainly. Tracing on: the plain graph has them too, and the
+    traced graph two event-record nodes more for each span the callable
+    records (the engine's max-pool)."""
+    from yolo_tpu_torch.serving.graphs import GraphedPredict
+    from yolo_tpu_torch.utils import tracing
+
+    fn, q, conf, images = flagship_engine
+    predict = lambda x: fn(q, x, conf, 0.4)  # noqa: E731
+    static = images.cuda()
+
+    def plain():
+        predict(static)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            predict(static)
+        return g
+
+    def graphed():
+        [t.cpu() for t in GraphedPredict(predict, "cuda")(images)]
+
+    (want,) = _graph_nodes(monkeypatch, plain)
+    tracing.disable()
+    (off,) = _graph_nodes(monkeypatch, graphed)
+    tracing.enable()
+    try:
+        plain_on, traced_on = _graph_nodes(monkeypatch, graphed)
+    finally:
+        tracing.disable()
+        tracing.take()
+    assert want > 60 and off == plain_on == want and traced_on == want + 2
+
+
+def test_spans_inside_a_graph_are_timed_at_every_replay(flagship_engine):
+    """A span around the whole captured call reads, at each read replay (one
+    in READ_EVERY), within 5% of events around that call (images already on
+    the card, so the call is a device copy and the replay); the engine's
+    max-pool span nests in it; nothing is unread; launches = replays x the
+    launches of one eager call. With the tracer turned off, the next call
+    drops the traced graph and replays the plain one."""
+    from yolo_tpu_torch.serving.graphs import GraphedPredict
+    from yolo_tpu_torch.serving.library import launch_counts
+    from yolo_tpu_torch.utils import tracing
+
+    fn, q, conf, images = flagship_engine
+    before = launch_counts()
+    fn(q, images.cuda(), conf, 0.4)
+    torch.cuda.synchronize()
+    eager = launch_counts() - before
+    assert eager == {"quant_s2d": 1, "conv_int8": 58, "nms": 1}
+
+    def predict(x):
+        with tracing.span("whole"):
+            return fn(q, x, conf, 0.4)
+
+    calls = 2 * tracing.READ_EVERY
+    on_card = images.cuda()
+    around = []
+    tracing.take()
+    tracing.enable()
+    try:
+        graphed = GraphedPredict(predict, "cuda")
+        for _ in range(calls):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = graphed(on_card)
+            end.record()
+            [t.cpu() for t in out]
+            around.append(start.elapsed_time(end))
+        taken = tracing.take()
+    finally:
+        tracing.disable()
+    assert graphed.captures == 2 and graphed.replays == calls
+    assert graphed.launches() == {k: calls * n for k, n in eager.items()}
+    assert taken.unread == 0 and taken.dropped == 0
+    replays = {s.id: s for s in taken.spans if s.name == "graphs.replay"}
+    whole = {s.id: s for s in taken.spans if s.name == "whole" and s.replayed}
+    pools = [s for s in taken.spans if s.name == "engine.max_pool" and s.replayed]
+    assert len(replays) == calls and len(whole) == len(pools) == 2
+    assert all(s.weight == tracing.READ_EVERY for s in [*whole.values(), *pools])
+    assert all(p.parent in whole for p in pools)
+    traced_calls = [k for k in range(calls) if (k + 1) % tracing.READ_EVERY == 0]
+    for w, k in zip(sorted(whole.values(), key=lambda s: s.start_ns), traced_calls):
+        assert replays[w.parent].start_ns == w.start_ns
+        assert abs(w.device_ms - around[k]) <= 0.05 * around[k], (w, around)
+    assert all(0 < p.device_ms < whole[p.parent].device_ms for p in pools)
+    [t.cpu() for t in graphed(images)]
+    assert graphed.captures == 2 and graphed.replays == calls + 1
+    assert graphed._graphs[(tuple(images.shape), images.dtype)].traced is None
+    assert graphed.launches() == {k: (calls + 1) * n for k, n in eager.items()}
+    assert tracing.take().spans == []

@@ -8,8 +8,8 @@ detects every dog and the report is not all zeros. The CLI's keys must
 equal an in-process ``evaluate_model`` on the same data, on both paths;
 the int8 engine (calibrated on ``--calib-data``, or loaded with
 ``--engine``) must give the same keys, since fc2 ignores its input. Then
-the refusals, and ``overfit_check``, ``quant_accuracy`` and ``bench_eval``
-at a tiny size with ``--device cpu``.
+the refusals, and ``overfit_check`` and ``quant_accuracy`` at a tiny size
+with ``--device cpu``.
 """
 
 import shutil
@@ -21,7 +21,7 @@ import torch
 from PIL import Image
 
 from test_torch_data import OBJ, XML
-from yolo_tpu_torch import bench_eval, evaluate, overfit_check, quant_accuracy
+from yolo_tpu_torch import evaluate, overfit_check, quant_accuracy
 from yolo_tpu_torch.data import VOC_CLASSES, DataLoader, create_voc_datasets
 from yolo_tpu_torch.metrics import evaluate_model
 from yolo_tpu_torch.models import create_model
@@ -154,10 +154,3 @@ def test_gates_run_on_the_cpu(tool, argv, verdict, capsys):
     out = capsys.readouterr().out
     assert f"{verdict} FAIL" in out and "mAP50" in out
 
-
-@pytest.mark.parametrize("flags", [[], ["--precise", "--int8"]], ids=["fast", "precise-int8"])
-def test_bench_eval_runs_on_the_cpu(flags, capsys):
-    out = bench_eval.main(["--device", "cpu", "--batch", "2", "--batches", "2",
-                           "--image-size", "64", *flags])
-    assert out["img_s"] > 0 and out["compute_s"] >= 0 and out["idle"] is None
-    assert "img/s" in capsys.readouterr().out

@@ -39,11 +39,11 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch.data.loader, yolo_tpu_torch.data.transforms\n"
         "import yolo_tpu_torch.training.optim, yolo_tpu_torch.training.trainer\n"
         "import yolo_tpu_torch.training.logging, yolo_tpu_torch.train\n"
-        "import yolo_tpu_torch.bench_train, yolo_tpu_torch.serving\n"
+        "import yolo_tpu_torch.serving, yolo_tpu_torch.utils.tracing\n"
         "import yolo_tpu_torch.serving.cuda_stem, yolo_tpu_torch.serving.cuda_int8\n"
         "import yolo_tpu_torch.serving.engine, yolo_tpu_torch.serving.export\n"
         "import yolo_tpu_torch.serving.fold, yolo_tpu_torch.serving.quant\n"
-        "import yolo_tpu_torch.serving.cuda_bottleneck, yolo_tpu_torch.bench_int8\n"
+        "import yolo_tpu_torch.serving.cuda_bottleneck\n"
         "import yolo_tpu_torch.utils.timing, yolo_tpu_torch.serving.winograd\n"
         "import yolo_tpu_torch.serving.cuda_wino, yolo_tpu_torch.experiments.wino_ablate\n"
         "import yolo_tpu_torch.experiments.opt_update_microbench\n"
@@ -52,7 +52,7 @@ def test_port_imports_with_jax_blocked():
         "import yolo_tpu_torch.experiments.fused_block_pallas\n"
         "import yolo_tpu_torch.ops.matching, yolo_tpu_torch.metrics, yolo_tpu_torch.evaluate\n"
         "import yolo_tpu_torch.overfit_check, yolo_tpu_torch.quant_accuracy\n"
-        "import yolo_tpu_torch.bench_eval, yolo_tpu_torch.serve\n"
+        "import yolo_tpu_torch.serve\n"
         "import yolo_tpu_torch.serving.graphs, yolo_tpu_torch.serving.batcher\n"
         "import yolo_tpu_torch.serving.server\n"
         "assert 'triton' not in sys.modules\n"

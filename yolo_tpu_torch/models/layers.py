@@ -36,6 +36,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from yolo_tpu_torch.ops import fused_bn
+from yolo_tpu_torch.utils import tracing
 
 LEAKY_SLOPE = 0.1
 
@@ -314,7 +315,8 @@ class Int8Conv2d(nn.Conv2d):
         if self.training:
             raise RuntimeError("Int8Conv2d is inference only (quantized=True); call .eval()")
         wq, s_w, wk, c127 = self.quantized_weight()
-        xq, s_x = quantize_input(x, c127)
+        with tracing.span("int8conv.quantize"):
+            xq, s_x = quantize_input(x, c127)
         t = self.bias if self.bias is not None else torch.zeros_like(s_w)
         y = cuda_int8.conv_int8(xq, wq, s_x * s_w, t, self.stride[0], self.padding[0],
                                 "float", wk=wk)

@@ -22,6 +22,12 @@ back to the host in one copy a field and are sliced per image.
 
 Works with any ``(images) -> Detections`` batch callable that takes a host
 batch: a ``GraphedPredict``, or an engine closure on the CPU.
+
+With the tracer on (``utils/tracing.py``) each request records
+``batcher.wait`` (from ``submit`` to the start of its batch's dispatch, on
+the worker's clock), and each batch ``batcher.stack``, ``batcher.predict``,
+``batcher.copy_out`` and ``batcher.fan_out``. ``images_served /
+slots_dispatched`` is the buckets' fill.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from yolo_tpu_torch.utils import tracing
 
 
 class RequestBatcher:
@@ -72,6 +80,8 @@ class RequestBatcher:
         self._closed = False
         self.batches_dispatched = 0
         self.images_served = 0
+        #: Bucket rows dispatched, pad rows included.
+        self.slots_dispatched = 0
         #: Batches dispatched per bucket size.
         self.bucket_batches: Counter = Counter()
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -90,7 +100,7 @@ class RequestBatcher:
                 f"{self._image_shape}"
             )
         fut: Future = Future()
-        self._queue.put((image, fut))
+        self._queue.put((image, fut, time.perf_counter_ns()))
         return fut
 
     def warmup(self) -> None:
@@ -110,7 +120,7 @@ class RequestBatcher:
         # leftovers crisply instead.
         while True:
             try:
-                _, fut = self._queue.get_nowait()
+                _, fut, _ = self._queue.get_nowait()
             except queue.Empty:
                 return
             if not fut.cancelled():
@@ -154,19 +164,26 @@ class RequestBatcher:
         return buf
 
     def _dispatch(self, batch) -> None:
+        if tracing.enabled():
+            start = time.perf_counter_ns()
+            for b in batch:
+                tracing.record("batcher.wait", b[2], start)
         images = [b[0] for b in batch]
         futures = [b[1] for b in batch]
         n = len(images)
         bucket = next((b for b in self._buckets if b >= n), self._buckets[-1])
-        stacked = self._stage(bucket)
-        host = stacked.numpy()
-        np.stack(images, out=host[:n])
-        host[n:] = 0
+        with tracing.span("batcher.stack"):
+            stacked = self._stage(bucket)
+            host = stacked.numpy()
+            np.stack(images, out=host[:n])
+            host[n:] = 0
         try:
-            dets = self._predict(stacked)
+            with tracing.span("batcher.predict"):
+                dets = self._predict(stacked)
             # One copy a field; the host waits for the batch here, so the
             # staging buffer and a graph's outputs are free for the next one.
-            fields = [t.cpu().numpy() for t in dets]
+            with tracing.span("batcher.copy_out"):
+                fields = [t.cpu().numpy() for t in dets]
         except Exception as exc:  # noqa: BLE001 — fail the waiters, keep serving
             for fut in futures:
                 if not fut.cancelled():
@@ -174,9 +191,11 @@ class RequestBatcher:
             return
         self.batches_dispatched += 1
         self.images_served += n
+        self.slots_dispatched += bucket
         self.bucket_batches[bucket] += 1
-        for i, fut in enumerate(futures):
-            # A caller may have cancelled while we computed; set_result on a
-            # cancelled future raises and would kill the worker thread.
-            if not fut.cancelled():
-                fut.set_result(type(dets)(*(a[i] for a in fields)))
+        with tracing.span("batcher.fan_out"):
+            for i, fut in enumerate(futures):
+                # A caller may have cancelled while we computed; set_result on
+                # a cancelled future raises and would kill the worker thread.
+                if not fut.cancelled():
+                    fut.set_result(type(dets)(*(a[i] for a in fields)))

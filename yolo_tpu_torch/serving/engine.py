@@ -37,6 +37,7 @@ from yolo_tpu_torch.data.transforms import device_normalize
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.decode import Detections, decode_predictions
 from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
+from yolo_tpu_torch.utils import tracing
 
 #: Keys :func:`to_device` derives from the q-params (not part of an artifact).
 DERIVED_KEYS = ("wk", "wf", "uk")
@@ -140,7 +141,8 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
     else:
         x_q = cuda_stem.quantize_input(_normalize_if_uint8(images), q["s_img"])
         x_q = conv(x_q, stem, 2, 3, "relu")
-    x_q = max_pool_int8(x_q)
+    with tracing.span("engine.max_pool"):
+        x_q = max_pool_int8(x_q)
 
     for si, blocks in enumerate(q["layers"]):
         # impl[f"layer{i}"] is a stage-chain hook (x_q, qblocks) -> x_q over
@@ -311,7 +313,7 @@ def build_int8_predict(model, calibration_images, impl=None, nms_fn=None, stem_m
     from yolo_tpu_torch.serving.winograd import wino_impl_hooks
 
     device = next(model.parameters()).device
-    with torch.inference_mode():
+    with tracing.span("engine.build"), torch.inference_mode():
         folded = fold_flagship(model.state_dict())
         act_max = calibrate_activations(folded, calibration_images, dtype=torch.bfloat16,
                                         wino_points=wino)

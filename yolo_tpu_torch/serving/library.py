@@ -20,6 +20,8 @@ tensor never reaches the twin. :func:`aot_impl`, :func:`aot_conv` and
 :func:`aot_nms` have the engine's hook signatures
 (``engine.make_int8_engine_fn(..., impl=, nms_fn=, conv=)``) and call the
 ops; ``export.save_compiled_engine`` builds its engine with them.
+:func:`launch_counts` reads every serving kernel wrapper's ``LAUNCHES``,
+these three and the fused chain's and Winograd's.
 
 Only the export goes through the ops. A custom op's dispatch costs host time
 on every call, so the eager and graphed engine (``engine.default_impl``,
@@ -30,6 +32,7 @@ default engine only.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -37,7 +40,7 @@ import torch
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.boxes import EPSILON
 from yolo_tpu_torch.ops.decode import Detections
-from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_stem, cuda_wino
 
 NAMESPACE = "yolo_tpu_torch"
 _DEVICES = ("cpu", "cuda")
@@ -111,3 +114,12 @@ def aot_nms(dets: Detections, iou_threshold: float = 0.4, eps: float = EPSILON) 
     """``cuda_nms.nms`` through ``nms_keep``."""
     keep = torch.ops.yolo_tpu_torch.nms_keep(*cuda_nms.keep_args(dets, iou_threshold, eps))
     return dets._replace(valid=keep.reshape(dets.scores.shape))
+
+
+def launch_counts() -> Counter:
+    """The serving kernel wrappers' launch counters, by kernel name."""
+    counts = Counter(quant_s2d=cuda_stem.LAUNCHES, conv_int8=cuda_int8.LAUNCHES,
+                     nms=cuda_nms.LAUNCHES)
+    counts.update(cuda_bottleneck.LAUNCHES)
+    counts.update({f"wino.{mode}": n for mode, n in cuda_wino.LAUNCHES.items()})
+    return counts

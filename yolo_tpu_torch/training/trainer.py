@@ -8,7 +8,10 @@ BN statistics update in the forward (train mode). The loss parts stay on
 the device; the epoch loop syncs with the host only at ``log_interval`` and
 at the end of the epoch (the reference syncs five scalars every batch).
 ``validate(compute_map=True)`` adds the evaluator's keys
-(metrics/map.py).
+(metrics/map.py). With the tracer on (``utils/tracing.py``) a step records
+the spans ``train.input``, ``train.forward`` (model and loss),
+``train.backward``, ``train.clip`` and ``train.optimizer`` (Adam and the
+schedule), in that order.
 
 With ``mesh`` (``parallel.make_mesh``, one process a device; JAX
 trainer.py:77-199, 240-297): the head is cut by ``parallel.shard_head``,
@@ -54,6 +57,7 @@ from yolo_tpu_torch.training.logging import (
     print_loss_metrics,
     print_map_metrics,
 )
+from yolo_tpu_torch.utils import tracing
 
 LOSS_KEYS = ("total", "coord", "conf_obj", "conf_noobj", "class")
 
@@ -128,10 +132,18 @@ class Trainer:
 
         return tuple(batch_slice(self.mesh, a) for a in arrays)
 
+    def _inputs(self, images, targets):
+        """The batch on the device: normalized NCHW images and float32 targets."""
+        x = self._images(images)
+        return x, torch.as_tensor(targets).to(self.device, torch.float32, non_blocking=True)
+
     def _loss(self, images, targets, sample_mask=None, model=None):
+        return self._device_loss(*self._inputs(images, targets), sample_mask, model)
+
+    def _device_loss(self, images, targets, sample_mask=None, model=None):
+        """(total, parts) of the batch as :meth:`_inputs` puts it on the device."""
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.use_amp):
-            out = (model or self.model)(self._images(images))
-        targets = torch.as_tensor(targets).to(self.device, torch.float32, non_blocking=True)
+            out = (model or self.model)(images)
         m = self.model
         return yolo_loss(out.float(), targets, S=m.S, B=m.B, C=m.num_classes,
                          lambda_coord=self.lambda_coord, lambda_noobj=self.lambda_noobj,
@@ -173,11 +185,17 @@ class Trainer:
             images, targets = self._rows(images, targets)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        total, parts = self._loss(images, targets, model=self.forward_model)
-        total.backward()
-        self.last_grad_norm = self._clip()
-        self.optimizer.step()
-        self.schedule.step()
+        with tracing.span("train.input"):
+            images, targets = self._inputs(images, targets)
+        with tracing.span("train.forward"):
+            total, parts = self._device_loss(images, targets, model=self.forward_model)
+        with tracing.span("train.backward"):
+            total.backward()
+        with tracing.span("train.clip"):
+            self.last_grad_norm = self._clip()
+        with tracing.span("train.optimizer"):
+            self.optimizer.step()
+            self.schedule.step()
         return {k: v.detach() for k, v in parts.items()}
 
     def _host_mean(self, totals: Dict[str, torch.Tensor], count: int) -> Dict[str, float]:

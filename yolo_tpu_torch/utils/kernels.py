@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from yolo_tpu_torch.utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "yolo_tpu_torch"
 LIB_NAME = "libyolo_tpu_torch_kernels.so"
@@ -109,36 +111,37 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once, and declare every C function's signature."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.yolo_nms.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, cf, vp]
-        cd = ctypes.c_double
-        lib.yolo_nms_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, cd, cd, vp]
-        lib.yolo_empty.argtypes = [ci, ci, vp]
-        lib.yolo_bn_stats.argtypes = [vp, vp, vp, cll, ci, ci, ci, vp]
-        lib.yolo_bn_normalize.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
-        lib.yolo_bn_bwd_reduce.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
-        lib.yolo_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
-        lib.yolo_quant_s2d.argtypes = [vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp]
-        lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 16), vp, vp]
-        ptrs = ctypes.POINTER(vp)
-        lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), ctypes.POINTER(ci), vp]
-        lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
-                                        ctypes.POINTER(ci), vp]
-        lib.yolo_int8_wino_taps.argtypes = [vp, vp, vp, *([ci] * 6), vp]
-        lib.yolo_int8_wino_gemm.argtypes = [vp, vp, vp, vp, vp, *([ci] * 8), vp]
-        lib.yolo_adam_update.argtypes = [vp, vp, vp, vp, vp, cll, vp]
-        lib.yolo_bf16_conv3x3.argtypes = [vp, vp, vp, vp, vp, *([ci] * 6), vp]
-        lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 7), vp]
-        for fn in (lib.yolo_nms, lib.yolo_nms_f64, lib.yolo_empty, lib.yolo_bn_stats,
-                   lib.yolo_bn_normalize, lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx, lib.yolo_quant_s2d,
-                   lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
-                   lib.yolo_int8_wino_taps, lib.yolo_int8_wino_gemm, lib.yolo_adam_update,
-                   lib.yolo_bf16_conv3x3, lib.yolo_bf16_bottleneck):
-            fn.restype = ci
-        lib.yolo_cuda_error_string.argtypes = [ci]
-        lib.yolo_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with tracing.span("kernels.load"):
+            lib = ctypes.CDLL(str(build()))
+            vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+            lib.yolo_nms.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, cf, vp]
+            cd = ctypes.c_double
+            lib.yolo_nms_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, cd, cd, vp]
+            lib.yolo_empty.argtypes = [ci, ci, vp]
+            lib.yolo_bn_stats.argtypes = [vp, vp, vp, cll, ci, ci, ci, vp]
+            lib.yolo_bn_normalize.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
+            lib.yolo_bn_bwd_reduce.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
+            lib.yolo_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
+            lib.yolo_quant_s2d.argtypes = [vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp]
+            lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 16), vp, vp]
+            ptrs = ctypes.POINTER(vp)
+            lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), ctypes.POINTER(ci), vp]
+            lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
+                                            ctypes.POINTER(ci), vp]
+            lib.yolo_int8_wino_taps.argtypes = [vp, vp, vp, *([ci] * 6), vp]
+            lib.yolo_int8_wino_gemm.argtypes = [vp, vp, vp, vp, vp, *([ci] * 8), vp]
+            lib.yolo_adam_update.argtypes = [vp, vp, vp, vp, vp, cll, vp]
+            lib.yolo_bf16_conv3x3.argtypes = [vp, vp, vp, vp, vp, *([ci] * 6), vp]
+            lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 7), vp]
+            for fn in (lib.yolo_nms, lib.yolo_nms_f64, lib.yolo_empty, lib.yolo_bn_stats,
+                       lib.yolo_bn_normalize, lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx,
+                       lib.yolo_quant_s2d, lib.yolo_int8_conv, lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
+                       lib.yolo_int8_wino_taps, lib.yolo_int8_wino_gemm, lib.yolo_adam_update,
+                       lib.yolo_bf16_conv3x3, lib.yolo_bf16_bottleneck):
+                fn.restype = ci
+            lib.yolo_cuda_error_string.argtypes = [ci]
+            lib.yolo_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 
