@@ -258,6 +258,16 @@ on the int8 conv kernel). Phases:
    us a call of each of the three custom ops against its wrapper, under
    inference_mode as the engines run them; a CPU-device load is refused;
    serve --compiled returns a GraphedPredict with the bucket (16,).
+37. the dynamic-int8 quantize (csrc/dyn_quant.cu, a port-only kernel pair
+   in front of every Int8Conv2d) at the 24-conv model's 24 conv inputs at
+   448x448, batch 64: x_q and s_x == the eager twin (the six passes) bit
+   for bit at each; device ms of both from CUDA graphs, summed over the 24,
+   beside the bound (9 bytes an element over 3.35 TB/s), and each pass's
+   device time (torch.profiler) at the largest and smallest input; then the
+   quantized 24-conv model: its grid == the same model's with the twin,
+   bit for bit, and its GraphedPredict batch_fn at batch 64 replays 24
+   quantize calls, 24 int8 convs and 1 NMS a batch, ms a batch against the
+   same graph with the twin (CUDA events, in turns).
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
@@ -3953,6 +3963,121 @@ def phase_quantized(card: str) -> int:
         torch.cuda.empty_cache()
     return out["resnet"]
 
+# ---------------------------------------------------------------- phase 37
+DYNQ_BATCH = 64  # yolov1-dyn8-offline-b64's batch
+
+
+def _dynq_inputs(g, batch: int) -> list:
+    """The 24-conv model's 24 conv inputs at 448x448 (NCHW views of NHWC
+    memory): the normalized image, then LeakyReLU outputs."""
+    import torch
+
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.models.backbones import yolov1_conv_inputs
+
+    out = []
+    for i, (c, h, w) in enumerate(yolov1_conv_inputs(SIZE)):
+        if i == 0:
+            x = device_normalize(torch.randint(0, 256, (batch, h, w, c), generator=g,
+                                               device=g.device, dtype=torch.uint8))
+        else:
+            x = torch.nn.functional.leaky_relu(
+                torch.randn(batch, h, w, c, generator=g, device=g.device) * 2, 0.1)
+        out.append(x.permute(0, 3, 1, 2))
+    return out
+
+
+def phase_dynq(card: str) -> dict:
+    """Phase 37: the dynamic-int8 quantize kernels against the six eager
+    passes at the 24-conv model's conv inputs, then in the model."""
+    import torch
+
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.inference import YOLOInference
+    from yolo_tpu_torch.models import create_model
+    from yolo_tpu_torch.serving import cuda_dynq
+    from yolo_tpu_torch.serving.graphs import GraphedPredict
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37)
+    c127 = torch.full((), 127.0, dtype=torch.float32, device=dev)
+    xs = _dynq_inputs(g, DYNQ_BATCH)
+    rows, n_all = [], 0
+    for i, x in enumerate(xs):
+        xq, s_x = cuda_dynq.quantize(x, c127)
+        ref_q, ref_s = cuda_dynq.quantize_reference(x, c127)
+        if not (torch.equal(s_x, ref_s) and torch.equal(xq, ref_q)):
+            raise AssertionError(f"dynq conv {i} {tuple(x.shape)}: kernel != twin "
+                                 f"(s_x {float(s_x)!r} vs {float(ref_s)!r}, "
+                                 f"{int((xq != ref_q).sum())} x_q values differ)")
+        del xq, s_x, ref_q, ref_s
+        k_ms = graph_ms(lambda: cuda_dynq.quantize(x, c127), iters=10)
+        p_ms = graph_ms(lambda: cuda_dynq.quantize_reference(x, c127), iters=3)
+        rows.append((tuple(x.shape), k_ms, p_ms, bound(cuda_dynq.bytes_moved(x.numel()), 0, 1)[0]))
+        n_all += x.numel()
+    k_sum, p_sum, b_sum = (sum(r[j] for r in rows) for j in (1, 2, 3))
+    for shape, k_ms, p_ms, b_ms in rows:
+        log(f"[37] dynq {shape}: == twin bit for bit; kernel {k_ms:.4f} ms device "
+            f"({100 * b_ms / k_ms:.1f}% of {b_ms:.4f} ms), six passes {p_ms:.4f} ms")
+    log(f"[37] {card}: dynq over the 24 conv inputs at batch {DYNQ_BATCH} ({n_all:,} "
+        f"elements, {cuda_dynq.bytes_moved(n_all) / 1e9:.3f} GB at 9 B an element): kernel "
+        f"{k_sum:.4f} ms device (CUDA graphs), bound {b_sum:.4f} ms "
+        f"({100 * b_sum / k_sum:.1f}%, {cuda_dynq.bytes_moved(n_all) / k_sum / 1e6:.0f} GB/s); "
+        f"the six eager passes {p_sum:.4f} ms ({p_sum / k_sum:.2f}x)")
+    for i in (1, len(xs) - 1):
+        x = xs[i]
+        per_kernel, _ = profile_kernels(lambda: cuda_dynq.quantize(x, c127), iters=10)
+        split = ", ".join(f"{k} {profiled(ms)}" for k in ("dynq_absmax", "dynq_quantize")
+                          for name, ms in per_kernel.items() if k in name)
+        log(f"[37] dynq {tuple(x.shape)} by pass (torch.profiler, a call): "
+            f"{split or 'not measured'}")
+    del xs, x
+    torch.cuda.empty_cache()
+
+    model = create_model("yolov1", C, S, B, device=dev, image_size=SIZE, quantized=True,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    engine = YOLOInference(model, dev, image_size=SIZE)
+    images = torch.randint(0, 256, (DYNQ_BATCH, SIZE, SIZE, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    x = device_normalize(images).permute(0, 3, 1, 2)
+    kernel_quantize = cuda_dynq.quantize
+
+    def run(twin: bool):
+        # Int8Conv2d reaches the kernels through cuda_dynq.quantize; the twin in its place.
+        cuda_dynq.quantize = cuda_dynq.quantize_reference if twin else kernel_quantize
+        try:
+            with torch.inference_mode():
+                grid = engine.model(x)
+            graphed = GraphedPredict(engine.batch_fn(0.0, IOU_T), dev)
+            for _ in range(3):
+                graphed(images)
+            per_batch = {k: n / graphed.replays for k, n in graphed.launches().items()}
+            ms = cuda_ms(lambda: graphed(images), iters=10, warmup=2)
+        finally:
+            cuda_dynq.quantize = kernel_quantize
+        return grid, per_batch, ms, graphed
+
+    grid_k, per_batch, k_ms, graphed = run(False)
+    grid_t, per_batch_t, t_ms, _ = run(True)
+    if not torch.equal(grid_k, grid_t):
+        raise AssertionError("quantized 24-conv model: grid with the dynq kernels != with the "
+                             f"twin (max diff {float((grid_k - grid_t).abs().max())})")
+    want = {"dynq": 24, "conv_int8": 24, "nms": 1}
+    if per_batch != want or per_batch_t != {"conv_int8": 24, "nms": 1}:
+        raise AssertionError(f"quantized 24-conv GraphedPredict: {per_batch} launches a replay "
+                             f"(not {want}); with the twin {per_batch_t}")
+    k2_ms = cuda_ms(lambda: graphed(images), iters=10, warmup=2)
+    log(f"[37] {card}: quantized 24-conv model, batch {DYNQ_BATCH}: grid == the twin's bit for "
+        f"bit; GraphedPredict launches a replay {per_batch}; a batch (images on the card, copy "
+        f"in and replay, CUDA events) {k_ms:.3f} / {k2_ms:.3f} ms with the kernels vs "
+        f"{t_ms:.3f} ms with the six passes ({DYNQ_BATCH * 1e3 / k_ms:.0f} vs "
+        f"{DYNQ_BATCH * 1e3 / t_ms:.0f} img/s)")
+    del model, engine, graphed, grid_k, grid_t, x
+    torch.cuda.empty_cache()
+    return {"launches": per_batch["dynq"], "ms": k_sum, "plain_ms": p_sum,
+            "bound": (b_sum, "bytes")}
+
+
 # ---------------------------------------------------------------- phases 33-35
 # Each rank is a process of its own (torch's idiom); the ranks of a world
 # share the one card, so every time they print is two ranks time-sharing one
@@ -4642,6 +4767,7 @@ def main() -> None:
     timed(30, phase_yolov1_train, card)
     remat_launches = timed(31, phase_remat, card)
     quant_launches = timed(32, phase_quantized, card)
+    dynq = timed(37, phase_dynq, card)
     log(f"[29-32] launches: NMS {y24_launches} a 24-conv batch; fused-BN {remat_launches} a "
         f"remat='block' fused step; int8 conv {quant_launches} a quantized ResNet50 forward")
     torch.cuda.empty_cache()
@@ -4653,6 +4779,7 @@ def main() -> None:
         f"{par_serve[0]} a batch; "
         f"sharded evaluator NMS {par_serve[1]} for 2 batches")
     log(f"[36] AOT artifact launches (stem, int8 conv, NMS): {aot_launches} an eager call")
+    log(f"[37] dynq launches: {dynq['launches']} a replay of the quantized 24-conv model")
     log(f"[24] evaluator path launches: NMS {eval_nms} for {len(eval_batches())} metric "
         f"batches; CLI runs (stem, int8 conv, NMS): {eval_launches}")
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
@@ -4796,6 +4923,21 @@ def main() -> None:
             "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
+    # The dynamic-int8 quantize over the 24-conv model's 24 conv inputs at
+    # batch 64 (device times summed); it replaces no TPU kernel.
+    record["kernels"].append({
+        "name": "dyn_quant",
+        "route": "cuda",
+        "source": "yolo_tpu_torch/csrc/dyn_quant.cu",
+        "replaces": None,
+        "launches": dynq["launches"],
+        "max_abs_err": 0.0,
+        "ms": dynq["ms"],
+        "plain_ms": dynq["plain_ms"],
+        "bound_ms": dynq["bound"][0],
+        "bound_by": dynq["bound"][1],
+        "library_ms": None,
+    })
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -465,6 +465,153 @@ def test_int8_engine_on_the_card_equals_the_cpu_engine(device):
     assert float((got.cpu() - ref).abs().max()) <= tol
 
 
+# ------------------------------------------------- dynamic int8 quantize
+# Int8Conv2d's per-tensor input quantize (csrc/dyn_quant.cu) divides and
+# rounds as its twin does and takes an exact max: bit for bit, no tolerance.
+# The edge cases are shared with the CPU test of the twin
+# (tests/test_torch_quantized.py).
+DYNQ_CASES = ("odd numel", "three elements", "unaligned", "nchw", "bfloat16", "zeros", "ties",
+              "near ties", "beyond 127 s", "tiny", "wide range")
+
+
+def _beyond_127_amax(r) -> np.float32:
+    """An amax whose float32 scale amax / 127 rounds down, so amax / s > 127."""
+    for a in r.uniform(0.5, 8.0, size=4096).astype(np.float32):
+        if a / (a / np.float32(127)) > np.float32(127):
+            return a
+    raise AssertionError("no amax with amax / s > 127 among 4096 draws")
+
+
+def dynq_input(case: str, device="cpu") -> torch.Tensor:
+    """One edge case of the quantize's input as an NCHW tensor on ``device``
+    (channels_last memory, as the models hold it, unless the case says otherwise)."""
+    r = np.random.default_rng(DYNQ_CASES.index(case))
+    shape = (2, 9, 11, 6)  # NHWC
+    if case == "odd numel":
+        a = r.normal(size=(1, 5, 7, 3))
+    elif case == "three elements":
+        a = r.normal(size=(1, 1, 1, 3))
+    elif case == "zeros":
+        a = np.zeros(shape)
+        a[0, 0, :, 0] = -0.0
+    elif case == "ties":  # s = 2^-5 exactly, every x / s a half-integer
+        s = 2.0 ** -5
+        a = (r.integers(-127, 127, size=shape) + 0.5) * s
+        a[0, 0, 0, 0] = 127 * s
+    elif case in ("near ties", "beyond 127 s"):
+        amax = np.float32(5.3) if case == "near ties" else _beyond_127_amax(r)
+        s = np.maximum(amax / np.float32(127), np.float32(1e-8))
+        a = ((r.integers(-127, 127, size=shape) + np.float32(0.5)) * s).astype(np.float32)
+        step = r.integers(-1, 2, size=shape)  # the product, or one ulp down or up
+        a = np.where(step == 0, a, np.nextafter(a, np.where(step < 0, -np.inf, np.inf)
+                                                .astype(np.float32)))
+        a[0, 0, 0, :2] = (amax, -amax)
+    elif case == "tiny":  # amax / 127 under 1e-8: s = 1e-8
+        a = r.uniform(-1e-7, 1e-7, size=shape)
+    elif case == "wide range":
+        a = r.normal(size=shape) * 10.0 ** r.integers(-30, 30, size=shape)
+    else:  # "unaligned", "nchw", "bfloat16"
+        a = r.normal(size=shape) * 3
+    x = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    if case == "unaligned":  # a view that starts one float into its storage
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(x.shape)
+    elif case == "bfloat16":
+        x = x.bfloat16()
+    x = x.permute(0, 3, 1, 2)
+    return x.contiguous() if case == "nchw" else x
+
+
+def _dynq_on_card_equals_twin(x):
+    from yolo_tpu_torch.serving import cuda_dynq
+
+    c127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)
+    before = cuda_dynq.LAUNCHES
+    xq, s_x = cuda_dynq.quantize(x, c127)
+    torch.cuda.synchronize()
+    assert cuda_dynq.LAUNCHES == before + 1
+    ref_q, ref_s = cuda_dynq.quantize_reference(x, c127)
+    n, c, h, w = x.shape
+    assert xq.shape == (n, h, w, c) and xq.dtype == torch.int8 and xq.is_contiguous()
+    assert s_x.shape == () and s_x.dtype == torch.float32
+    assert torch.equal(s_x, ref_s) and torch.equal(xq, ref_q)
+    return xq, s_x
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+@pytest.mark.parametrize("conv", range(24), ids=lambda i: f"conv{i:02d}")
+def test_dynq_kernel_equals_plain_twin_at_the_24conv_inputs(device, conv, batch):
+    """Every conv input of the 24-conv model at 448x448: the normalized
+    image, then LeakyReLU outputs."""
+    from yolo_tpu_torch.data.transforms import device_normalize
+    from yolo_tpu_torch.models.backbones import yolov1_conv_inputs
+
+    c, h, w = yolov1_conv_inputs(448)[conv]
+    g = torch.Generator(device=device).manual_seed(100 * batch + conv)
+    if conv == 0:
+        x = device_normalize(torch.randint(0, 256, (batch, h, w, c), generator=g,
+                                           device=device, dtype=torch.uint8))
+    else:
+        x = torch.nn.functional.leaky_relu(
+            torch.randn(batch, h, w, c, generator=g, device=device) * 2, 0.1)
+    _dynq_on_card_equals_twin(x.permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("case", DYNQ_CASES)
+def test_dynq_kernel_equals_plain_twin_on_edge_cases(device, case):
+    from yolo_tpu_torch.serving import cuda_dynq
+
+    x = dynq_input(case, device)
+    if case == "unaligned":
+        assert x.data_ptr() % 16 != 0
+    xq, s_x = _dynq_on_card_equals_twin(x)
+    # ... and the twin on the card equals the twin on the CPU.
+    ref_q, ref_s = cuda_dynq.quantize_reference(x.cpu(), torch.tensor(127.0))
+    assert torch.equal(xq.cpu(), ref_q) and torch.equal(s_x.cpu(), ref_s)
+    if case == "zeros":
+        assert float(s_x) == float(np.float32(1e-8)) and not xq.any()
+
+
+def test_dynq_kernel_replays_in_a_cuda_graph_on_new_data(device):
+    """Captured once on one batch, a replay on the next batch's data in the
+    same buffer gives that batch's scale and x_q."""
+    from yolo_tpu_torch.serving import cuda_dynq
+
+    def batch(seed, scale):
+        g = torch.Generator(device=device).manual_seed(seed)
+        return torch.randn(4, 28, 28, 256, generator=g, device=device) * scale
+
+    static = batch(0, 1.0)
+    c127 = torch.full((), 127.0, dtype=torch.float32, device=device)
+    before = cuda_dynq.LAUNCHES
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_dynq.quantize(static.permute(0, 3, 1, 2), c127)  # warm up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xq, s_x = cuda_dynq.quantize(static.permute(0, 3, 1, 2), c127)
+    for seed, scale in ((1, 3.0), (2, 0.25)):
+        static.copy_(batch(seed, scale))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref_q, ref_s = cuda_dynq.quantize_reference(static.permute(0, 3, 1, 2), c127)
+        assert torch.equal(s_x, ref_s) and torch.equal(xq, ref_q)
+    assert cuda_dynq.LAUNCHES == before + 2  # warm-up, capture; a replay is no call
+
+
+def test_dynq_kernel_rejects_what_it_does_not_take(device):
+    from yolo_tpu_torch.serving import cuda_dynq
+
+    c127 = torch.full((), 127.0, dtype=torch.float32, device=device)
+    with pytest.raises(ValueError, match="empty"):
+        cuda_dynq.quantize(torch.ones(0, 3, 4, 4, device=device), c127)
+    with pytest.raises(ValueError, match="NCHW"):
+        cuda_dynq.quantize(torch.ones(3, 4, 4, device=device), c127)
+
+
 # ------------------------------------------------------- fused bottlenecks
 def random_qblock(seed, cin, c, p, ds=False):
     """Seeded q-params of one bottleneck block in the engine's layout (numpy):

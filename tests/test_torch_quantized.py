@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import yolo_tpu.models.layers as jax_layers
+from test_torch_cuda import DYNQ_CASES, dynq_input
 from test_torch_models import randomize_bn
 from yolo_tpu.models import ResNetBackbone as JResNet
 from yolo_tpu.models import YOLOv1 as JYOLOv1
@@ -34,7 +35,8 @@ from yolo_tpu.models import init_model
 from yolo_tpu_torch.convert import state_dict_from_jax
 from yolo_tpu_torch.models import create_model
 from yolo_tpu_torch.models.layers import Int8Conv2d, quantize_input
-from yolo_tpu_torch.serving import cuda_int8
+from yolo_tpu_torch.models.backbones import yolov1_conv_inputs
+from yolo_tpu_torch.serving import cuda_dynq, cuda_int8
 
 STAGES, SIZE = (1, 1, 1, 1), 64
 
@@ -113,9 +115,47 @@ def test_inference_only_and_no_kernel_launch_on_the_cpu():
     conv = Int8Conv2d(8, 16, 3, 1, 1)
     with pytest.raises(RuntimeError, match="inference only"):
         conv.train()(torch.ones(1, 8, 5, 5))
-    before = cuda_int8.LAUNCHES
+    before = cuda_int8.LAUNCHES, cuda_dynq.LAUNCHES
     conv.eval()(torch.ones(1, 8, 5, 5))
-    assert cuda_int8.LAUNCHES == before
+    assert (cuda_int8.LAUNCHES, cuda_dynq.LAUNCHES) == before
+
+
+def _dynq_numpy(x):
+    """csrc/dyn_quant.cu's arithmetic restated in numpy float32: an exact max,
+    IEEE divisions, rint's half to even."""
+    a = x.permute(0, 2, 3, 1).float().numpy()
+    s = np.maximum(np.abs(a).max() / np.float32(127), np.float32(1e-8))
+    return np.clip(np.rint(a / s), -127, 127).astype(np.int8), s
+
+
+@pytest.mark.parametrize("case", DYNQ_CASES)
+def test_quantize_input_runs_the_plain_twin_on_the_cpu(case):
+    """On CPU tensors ``quantize_input`` is the eager twin (no launch), and
+    the twin is the kernel's arithmetic, on the edge cases the CUDA tests
+    hold the kernel to."""
+    x = dynq_input(case)
+    c127 = torch.tensor(127.0)
+    before = cuda_dynq.LAUNCHES
+    xq, s_x = quantize_input(x, c127)
+    assert cuda_dynq.LAUNCHES == before
+    ref_q, ref_s = cuda_dynq.quantize_reference(x, c127)
+    assert torch.equal(xq, ref_q) and torch.equal(s_x, ref_s)
+    want_q, want_s = _dynq_numpy(x)
+    assert s_x.dtype == torch.float32 and s_x.item() == want_s
+    np.testing.assert_array_equal(xq.numpy(), want_q)
+
+
+@pytest.mark.parametrize("n, grid", [(1, 1), (4096, 1), (4097, 2), (1024 * 49, 13),
+                                     (64 * 1024 * 49, 528), (64 * 8329216, 528)])
+def test_dynq_grid_follows_the_element_count(n, grid):
+    assert cuda_dynq.blocks(n) == grid
+
+
+def test_yolov1_conv_inputs():
+    shapes = yolov1_conv_inputs(448)
+    assert len(shapes) == 24 and shapes[0] == (3, 448, 448) and shapes[-1] == (1024, 7, 7)
+    assert sum(c * h * w for c, h, w in shapes) == 8329216
+    assert yolov1_conv_inputs(64)[-1] == (1024, 1, 1)
 
 
 def _jax_models(backbone):

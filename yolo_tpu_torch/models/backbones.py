@@ -60,6 +60,20 @@ def yolov1_conv_indices() -> list:
     return indices
 
 
+def yolov1_conv_inputs(image_size: int) -> list:
+    """(C, H, W) of each of the 24 convs' inputs at ``image_size``, in order:
+    the shapes ``Int8Conv2d`` quantizes (448 -> 8,329,216 elements an image)."""
+    shapes, c, h = [], 3, image_size
+    for layer in YOLOV1_LAYERS:
+        if layer == "M":
+            h //= 2
+        else:
+            shapes.append((c, h, h))
+            c, k, s, p = layer
+            h = (h + 2 * p - k) // s + 1
+    return shapes
+
+
 def yolov1_feature_size(image_size: int) -> int:
     """Side of the 24-conv stack's output map: 448 -> 7, 64 -> 1."""
     h = image_size

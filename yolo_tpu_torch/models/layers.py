@@ -299,9 +299,11 @@ class Int8Conv2d(nn.Conv2d):
     - the int8 conv of ``x_q`` and ``w_q`` with an int32 accumulator, and
       ``y = float(acc) * (s_x * s_w) + bias`` (+0 without a bias).
 
-    The conv and its epilogue are one call of ``serving.cuda_int8.conv_int8``
-    in mode ``"float"``: the kernel ``csrc/int8_conv.cu`` on CUDA tensors,
-    its plain twin ``conv_int8_reference`` on CPU tensors. The scales stay
+    The input quantize is :func:`quantize_input` (on CUDA tensors the kernel
+    pair ``csrc/dyn_quant.cu``). The conv and its epilogue are one call of
+    ``serving.cuda_int8.conv_int8`` in mode ``"float"``: the kernel
+    ``csrc/int8_conv.cu`` on CUDA tensors, its plain twin
+    ``conv_int8_reference`` on CPU tensors. The scales stay
     on the device; every division is by a 0-dim device tensor, which torch
     computes as a true division (a host scalar becomes a multiply by its
     reciprocal on CUDA). Activations go NCHW -> NHWC and back as views where
@@ -345,8 +347,9 @@ class Int8Conv2d(nn.Conv2d):
 
 def quantize_input(x: torch.Tensor, c127: torch.Tensor):
     """(x_q NHWC int8 contiguous, s_x 0-dim float32) of NCHW ``x``, one
-    per-tensor scale over the batch (JAX ``_Int8ConvCore``'s order)."""
-    xh = x.permute(0, 2, 3, 1).float()
-    s_x = torch.clamp(xh.abs().amax() / c127, min=1e-8)
-    xq = torch.round(xh / s_x).clamp(-127, 127).to(torch.int8)
-    return xq.contiguous(), s_x
+    per-tensor scale over the batch (JAX ``_Int8ConvCore``'s order):
+    ``serving.cuda_dynq.quantize``, the kernel pair ``csrc/dyn_quant.cu`` on
+    CUDA tensors and its plain twin ``quantize_reference`` on CPU tensors."""
+    from yolo_tpu_torch.serving import cuda_dynq
+
+    return cuda_dynq.quantize(x, c127)
