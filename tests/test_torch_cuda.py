@@ -1357,3 +1357,63 @@ def test_spans_inside_a_graph_are_timed_at_every_replay(flagship_engine):
     assert graphed._graphs[(tuple(images.shape), images.dtype)].traced is None
     assert graphed.launches() == {k: (calls + 1) * n for k, n in eager.items()}
     assert tracing.take().spans == []
+
+
+def test_swin_shifted_block_matches_the_reference_on_a_fused_backend(device, monkeypatch):
+    """One shifted Swin block at stage-1 widths (112x112 tokens, 128 channels,
+    4 heads, window 7, batch 4) against ``portbench/references/swin-b-yolov1.py``:
+    float32 (TF32 off) to float32's rounding; under bf16 autocast, forward and
+    every gradient to bf16 noise between the fused and the written-out
+    attention, and bit for bit to the reference's own fused call (the core
+    its training steps run). The bf16 forward and backward run the attention kernels that
+    ``window_attn_share.train`` reads (a fused SDPA backend, not the math
+    fallback), and with the tracer off no span makes a CUDA event."""
+    from portbench import harness, weights
+    from portbench.references.detect import exact_float32
+    from yolo_tpu_torch.models.backbones import SwinBlock
+    from yolo_tpu_torch.models.layers import shift_mask
+    from yolo_tpu_torch.utils import tracing
+
+    ref = harness.load_file(harness.HERE / "references" / "swin-b-yolov1.py")
+    kernels = harness.load_file(harness.HERE / "metrics" / "window_attn_share.train.py").KERNELS
+    c, heads, side = 128, 4, 112
+    block = SwinBlock(c, heads, 7, 3, 4, device=device)
+    spec = [(n, tuple(p.shape), "bn_gamma" if n.endswith("norm1.weight") else
+             "bias" if "table" in n else "default", 2500 if "table" in n else c)
+            for n, p in block.named_parameters()]
+    sd = weights.make(spec, 11, device)
+    block.load_state_dict(sd)
+    mask = shift_mask(side, side, 7, 3).to(device)
+    params = {n: v.clone().requires_grad_(True) for n, v in sd.items()}
+
+    def reference(x, fused):
+        model = ref._Model({"window_size": 7}, params, fused=fused)
+        x = x + model.attention(model.ln(x, "norm1"), "attn", heads, 3, mask)
+        y = torch.nn.functional.gelu(model.linear(model.ln(x, "norm2"), "mlp.fc1"))
+        return x + model.linear(y, "mlp.fc2")
+
+    x = torch.randn(4, side, side, c, device=device, generator=torch.Generator(
+        device=device).manual_seed(3), requires_grad=True)
+    names = [n for n, _ in block.named_parameters()]
+    made = []
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: made.append(1))
+    with exact_float32():
+        for amp, fused, tol in ((False, False, 1e-4), (True, False, 3e-2), (True, True, 0.0)):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=amp):
+                    got = block(x, mask)
+                g = torch.randn_like(got)
+                got_grads = torch.autograd.grad(got, [x, *block.parameters()], g)
+                torch.cuda.synchronize()
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=amp):
+                want = reference(x, fused)
+            want_grads = torch.autograd.grad(want, [x, *(params[n] for n in names)], g)
+            for name, a, b in zip(["out", "x", *names], [got, *got_grads], [want, *want_grads]):
+                gap = float((a.float() - b.float()).norm() / b.float().norm())
+                assert gap <= (tol if name != "out" else tol / 3), (amp, fused, name, gap)
+            if amp:
+                attn = [e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and any(k in e.name for k in kernels)]
+                assert len(attn) >= 2, "the bf16 attention ran no fused kernel"
+    assert not tracing.enabled() and made == []

@@ -7,13 +7,16 @@ prints one line ``SPANS {json}``: the run's ``correct``, end-to-end and
 per-layer readings as the harness computes them, and what the benchmark
 does not read yet:
 
-- ``shares``: the six per-layer readings the spans give. A ``%`` is the
+- ``shares``: the eight per-layer readings the spans give. A ``%`` is the
   device time of the spans (``device_ms * weight``) that start inside the
   window, over the window's host-clock length: ``forward_share.train``
   (``train.input`` + ``train.forward``), ``backward_share.train``,
   ``optimizer_share.train`` (``train.clip`` + ``train.optimizer``),
-  ``max_pool_share.offline`` (``engine.max_pool``) and
-  ``quantize_share.offline`` (``int8conv.quantize``);
+  ``max_pool_share.offline`` (``engine.max_pool``),
+  ``quantize_share.offline`` (``int8conv.quantize``),
+  ``swin_attn_share.train`` (``swin.wmsa`` + ``swin.swmsa``: a Swin
+  block's norm1 through its residual add, forward only) and
+  ``swin_mlp_share.train`` (``swin.mlp``);
   ``program_setup_s.offline`` is the length of the union of the host
   intervals of ``kernels.load``, ``engine.build`` and ``graphs.capture``
   before the window. A share whose spans are absent reads None.
@@ -30,6 +33,8 @@ does not read yet:
   middle> / <CUDA call>`` or ``outside the program / <CUDA call>``.
 - ``graphs``: for an offline cell, the hand-written kernels' launches a
   batch in the window and the captures inside it; ``unread``, ``dropped``.
+- ``swin``: for a Swin model, the token positions a forward of the cell's
+  batch pads (``SwinBackbone.count_padding``; 0 at 448x448).
 - ``device_ops``: the window's 30 longest device operations by share.
 
 ``--spans 0`` leaves the tracer off, for its on-cost. Needs a CUDA device;
@@ -58,6 +63,8 @@ SHARES = {
     "optimizer_share.train": ("train.clip", "train.optimizer"),
     "max_pool_share.offline": ("engine.max_pool",),
     "quantize_share.offline": ("int8conv.quantize",),
+    "swin_attn_share.train": ("swin.wmsa", "swin.swmsa"),
+    "swin_mlp_share.train": ("swin.mlp",),
 }
 SETUP_SPANS = ("kernels.load", "engine.build", "graphs.capture")
 SYNC = "cudaDeviceSynchronize"
@@ -269,6 +276,13 @@ def _run_cell(args) -> dict:
         out["graphs"] = {"captures_in_window": c1 - c0, "replays": r1 - r0,
                          "launches_a_batch": {k: (v - l0.get(k, 0)) / batches
                                               for k, v in l1.items() if v > l0.get(k, 0)}}
+    model = config["model"]
+    if model["backbone"] == "swin_b":
+        from yolo_tpu_torch.models import SwinBackbone
+
+        side = -(-model["image_size"] // model["patch_size"])
+        out["swin"] = {"padded_tokens_a_forward": SwinBackbone.count_padding(
+            cell["params"]["batch"], side, side, model["depths"], model["window_size"])}
     by_op = defaultdict(float)
     for name, _, s, e, _ in state["device"]:
         by_op[trace.short_name(name)] += (e - s) * 1e-4 / td.window_s

@@ -11,9 +11,11 @@ The port's own modules: :class:`FusedBatchNormAct`, the train-mode
 BN(+residual)+ReLU through the CUDA kernels of ``ops/fused_bn.py`` (JAX
 ``FusedBatchNormAct``, layers.py:178-265); :class:`BatchNorm2d`, torch's
 BatchNorm; :class:`Dropout`, whose mask comes from its own
-``torch.Generator`` (or is handed to it), not from the global RNG; and
+``torch.Generator`` (or is handed to it), not from the global RNG;
 :class:`Int8Conv2d`, the dynamic-int8 conv (JAX ``_Int8ConvCore``,
-layers.py:88-139) on the int8 conv kernel ``csrc/int8_conv.cu``.
+layers.py:88-139) on the int8 conv kernel ``csrc/int8_conv.cu``; and
+:class:`WindowAttention`, Swin's (shifted-)window multi-head attention with
+its relative-position bias (no JAX counterpart).
 
 Recomputation (``remat``, ``models/backbones.py``) re-runs a train-mode
 forward for the backward pass. Both BN modules update their running
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import math
 
 import torch
@@ -82,8 +85,14 @@ def conv(
     )
 
 
-def linear(fin: int, fout: int, *, device: torch.device | str) -> nn.Linear:
-    return skip_init(nn.Linear, fin, fout, device=device)
+def linear(fin: int, fout: int, bias: bool = True, *,
+           device: torch.device | str) -> nn.Linear:
+    return skip_init(nn.Linear, fin, fout, bias=bias, device=device)
+
+
+def layer_norm(c: int, *, device: torch.device | str) -> nn.LayerNorm:
+    """LayerNorm over the last dim, eps 1e-5 (Swin's), initialised by :func:`init_weights_`."""
+    return skip_init(nn.LayerNorm, c, eps=1e-5, device=device)
 
 
 def batch_norm(c: int, *, device: torch.device | str) -> nn.BatchNorm2d:
@@ -150,10 +159,18 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     Conv and linear: weight and bias uniform in +-1/sqrt(fan_in), which is
     ``kaiming_uniform_(a=sqrt(5))`` and the JAX package's
     ``torch_kernel_init``. BatchNorm: weight 1, bias 0, running mean 0,
-    running var 1. Draws come from ``generator``, in module order.
+    running var 1. LayerNorm: weight 1, bias 0. A :class:`WindowAttention`'s
+    relative-position bias table: uniform in +-0.02 (Swin draws it from a
+    truncated normal of std 0.02). Draws come from ``generator``, in module
+    order.
     """
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, WindowAttention):
+            m.relative_position_bias_table.uniform_(-0.02, 0.02, generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
@@ -353,3 +370,105 @@ def quantize_input(x: torch.Tensor, c127: torch.Tensor):
     from yolo_tpu_torch.serving import cuda_dynq
 
     return cuda_dynq.quantize(x, c127)
+
+
+# ---------------------------------------------------------------- Swin's window attention
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) with H, W multiples of ``ws`` -> (B * nW, ws * ws, C),
+    windows in row-major order within each image."""
+    b, h, w, c = x.shape
+    x = x.view(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, c)
+
+
+def window_reverse(windows: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
+    """The inverse of :func:`window_partition`: (B * nW, ws * ws, C) -> (B, H, W, C)."""
+    c = windows.shape[-1]
+    x = windows.view(-1, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, h, w, c)
+
+
+def relative_position_index(ws: int) -> torch.Tensor:
+    """(ws*ws, ws*ws) int64: the row of the (2ws-1)^2-row bias table for each
+    (query, key) pair of a window, ``(dy + ws - 1) * (2ws - 1) + dx + ws - 1``."""
+    coords = torch.stack(torch.meshgrid(torch.arange(ws), torch.arange(ws), indexing="ij"))
+    coords = coords.flatten(1)
+    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0) + (ws - 1)
+    return rel[..., 0] * (2 * ws - 1) + rel[..., 1]
+
+
+def shift_mask(hp: int, wp: int, ws: int, shift: int) -> torch.Tensor:
+    """(nW, ws*ws, ws*ws) float32 additive mask of a shifted block on an
+    (hp, wp) padded map: Swin's nine regions of the rolled map, -100 between
+    tokens of different regions, 0 within one."""
+    img = torch.zeros(1, hp, wp, 1)
+    cuts = (slice(0, -ws), slice(-ws, -shift), slice(-shift, None))
+    for k, (hs, wsl) in enumerate(itertools.product(cuts, cuts)):
+        img[:, hs, wsl, :] = k
+    win = window_partition(img, ws).squeeze(-1)
+    diff = win[:, None, :] - win[:, :, None]
+    return torch.where(diff != 0, -100.0, 0.0)
+
+
+class WindowAttention(nn.Module):
+    """Swin's window multi-head self-attention on a normalized (B, H, W, C) map.
+
+    In order: pad H and W to multiples of ``window_size``; with ``shift``,
+    roll the map by (-shift, -shift); partition into windows; ``qkv``
+    (C -> 3C, with bias); per head ``softmax(q k^T / sqrt(d) + bias + mask) v``
+    with the bias gathered from ``relative_position_bias_table`` ((2ws-1)^2
+    rows, one column a head) by ``relative_position_index`` and ``mask`` the
+    shifted block's (nW, N, N) :func:`shift_mask` (none without shift);
+    ``proj`` (C -> C); reverse the partition, roll back, crop. Padded tokens
+    are zeros that take part in the attention, as in Swin's detection
+    backbone.
+
+    The attention core is one ``F.scaled_dot_product_attention`` call on
+    (B, nW * heads, N, d) with bias and mask summed into one additive mask
+    of (1, nW * heads, N, N), cast to the queries' dtype (bf16 under
+    autocast), so that a fused backend (memory-efficient or cuDNN) runs it.
+    ``relative_position_index`` is a non-persistent buffer: the state dict
+    holds parameters only.
+    """
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, *,
+                 device: torch.device | str):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
+        self.dim, self.num_heads, self.window_size = dim, num_heads, window_size
+        self.relative_position_bias_table = nn.Parameter(
+            torch.empty((2 * window_size - 1) ** 2, num_heads, device=device))
+        self.register_buffer("relative_position_index",
+                             relative_position_index(window_size).to(device), persistent=False)
+        self.qkv = linear(dim, 3 * dim, device=device)
+        self.proj = linear(dim, dim, device=device)
+
+    def extra_repr(self) -> str:
+        return f"dim={self.dim}, num_heads={self.num_heads}, window_size={self.window_size}"
+
+    def forward(self, x: torch.Tensor, shift: int = 0,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        b, h, w, c = x.shape
+        ws, heads = self.window_size, self.num_heads
+        n, d = ws * ws, c // heads
+        pad_b, pad_r = -h % ws, -w % ws
+        if pad_b or pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        hp, wp = h + pad_b, w + pad_r
+        nw = (hp // ws) * (wp // ws)
+        if shift:
+            x = torch.roll(x, (-shift, -shift), (1, 2))
+        qkv = self.qkv(window_partition(x, ws))
+        q, k, v = qkv.view(b, nw, n, 3, heads, d).permute(3, 0, 1, 4, 2, 5).reshape(
+            3, b, nw * heads, n, d).unbind(0)
+        bias = self.relative_position_bias_table[self.relative_position_index.view(-1)]
+        bias = bias.view(n, n, heads).permute(2, 0, 1)
+        bias = bias + mask[:, None] if shift else bias.expand(nw, heads, n, n)
+        attn_mask = bias.reshape(1, nw * heads, n, n).to(q.dtype)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+        out = self.proj(out.view(b, nw, heads, n, d).transpose(2, 3).reshape(b * nw, n, c))
+        x = window_reverse(out, ws, hp, wp)
+        if shift:
+            x = torch.roll(x, (shift, shift), (1, 2))
+        return x[:, :h, :w] if pad_b or pad_r else x

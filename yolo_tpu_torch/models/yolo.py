@@ -7,6 +7,8 @@ dispatch (yolo.py:39-69; reference src/yolo/models.py:179-276):
 - no backbone given        -> ``YOLOv1Backbone`` + ``SimpleHead``
 - ``YOLOv1Backbone``       -> ``SimpleHead`` (Flatten -> 4096 -> out)
 - ``ResNetBackbone``       -> ``DetectionHead`` (2048 in)
+- ``SwinBackbone``         -> ``DetectionHead`` (its ``out_channels``, 1024
+  for Swin-B), fc1 from ``head_feature_size(image_size, 4)``
 - custom backbone, no head -> ``ValueError``
 
 A 2-D head output is reshaped to the grid. Parameter names are the
@@ -22,8 +24,9 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from yolo_tpu_torch.models.backbones import (ResNetBackbone, YOLOv1Backbone, fused_mode,
-                                             remat_mode, yolov1_feature_size)
+from yolo_tpu_torch.models.backbones import (SWIN_B, ResNetBackbone, SwinBackbone,
+                                             YOLOv1Backbone, fused_mode, remat_mode,
+                                             yolov1_feature_size)
 from yolo_tpu_torch.models.heads import DetectionHead, SimpleHead
 from yolo_tpu_torch.models.layers import init_weights_
 
@@ -48,7 +51,9 @@ class YOLOv1(nn.Module):
             if isinstance(backbone, YOLOv1Backbone):
                 head = SimpleHead(num_classes, S, B, yolov1_feature_size(image_size),
                                   backbone.out_channels, device=device)
-            elif isinstance(backbone, ResNetBackbone):
+            elif isinstance(backbone, (ResNetBackbone, SwinBackbone)):
+                if quantized and isinstance(backbone, SwinBackbone):
+                    raise ValueError("the swin backbone has no int8 path (quantized=True)")
                 head = DetectionHead(backbone.out_channels, num_classes, S, B,
                                      head_feature_size(image_size, backbone.num_stages),
                                      device=device, quantized=quantized)
@@ -70,7 +75,8 @@ def head_feature_size(image_size: int, num_stages: int) -> int:
 
     Every stride-2 layer maps h -> (h - 1) // 2 + 1: the stem conv, the
     max pool, the first block of each stage after the first, and the head's
-    second conv. 448 -> 7; 64 -> 1.
+    second conv. 448 -> 7; 64 -> 1. The same holds for Swin's padded patch
+    embedding (ceil(h / 4)) and its three merges (ceil(h / 2)).
     """
     h = image_size
     for _ in range(2 + (num_stages - 1) + 1):
@@ -94,9 +100,12 @@ def create_model(
 ) -> YOLOv1:
     """Build a YOLOv1 on ``device`` with PyTorch's default init, in eval mode.
 
-    ``backbone``: "resnet" (the flagship) or "yolov1" (the 24-conv stack
-    and ``SimpleHead``). ``generator`` (on ``device``) draws the weights;
-    None means a generator seeded with 0. ``image_size`` fixes the head's
+    ``backbone``: "resnet" (the flagship), "yolov1" (the 24-conv stack
+    and ``SimpleHead``) or "swin_b" (the published Swin-B, ``SWIN_B``, and
+    ``DetectionHead(1024)``; bf16 training and float32 inference only, so
+    ``quantized``, ``fused_bn`` and ``remat`` raise ``ValueError``).
+    ``generator`` (on ``device``) draws the weights; None means a generator
+    seeded with 0. ``image_size`` fixes the head's
     fc1 width. ResNet only: ``stage_sizes`` cuts its depth (tests use
     (1, 1, 1, 1)); ``fused_bn`` (False, True/"stats" or "full") selects the
     train-mode BN path; ``remat`` (False/"none", True/"block", "stage")
@@ -109,10 +118,11 @@ def create_model(
     if backbone == "resnet":
         bb: nn.Module = ResNetBackbone(stage_sizes, device=device, fused_bn=fused_bn,
                                        quantized=quantized, remat=remat)
-    elif backbone == "yolov1":
+    elif backbone in ("yolov1", "swin_b"):
         if remat_mode(remat) != "none" or fused_mode(fused_bn) is not None:
             raise ValueError("remat and fused_bn apply to the resnet backbone only")
-        bb = YOLOv1Backbone(device=device, quantized=quantized)
+        bb = (YOLOv1Backbone(device=device, quantized=quantized) if backbone == "yolov1"
+              else SwinBackbone(**SWIN_B, device=device))
     else:
         raise ValueError(f"Unknown backbone '{backbone}'")
     model = YOLOv1(num_classes, S, B, bb, device=device, image_size=image_size,
