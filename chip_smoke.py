@@ -81,7 +81,8 @@ on the int8 conv kernel). Phases:
    58 convs;
 12. int8 slice: YOLOInference(optimize="int8") calibrated on two seeded
    batches of 8, predict_batch_arrays on 16 seeded uint8 images: the stem
-   kernel launched once and the conv kernel 58 times per forward (counts
+   and max-pool kernels launched once each and the conv kernel 58 times per
+   forward (counts
    zeroed just before), keep masks equal the twin path's on the card, the
    grid correlates > 0.98 with the fp32 slice's; save_engine -> a fresh
    engine gives identical detections; the predict CLI with --int8
@@ -184,15 +185,16 @@ on the int8 conv kernel). Phases:
 28. the server: YOLOServer on 127.0.0.1:0 over the graph-wrapped default
    int8 engine, buckets (1, 4, 16), 2 ms, the launch counts zeroed just
    before its buckets are captured and read after, exactly 3 buckets x 3
-   runs x (1, 58, 1) (replays leave them unchanged; torch.profiler counts
-   5 replays' kernels, at most 5 x (1, 58, 1)); 256 requests of seeded
+   runs x (1, 1, 58, 1) (stem, max-pool, int8 conv, NMS; replays leave them
+   unchanged; torch.profiler counts 5 replays' kernels, at most 5 x (1, 1,
+   58, 1)); 256 requests of seeded
    448x448 PNGs from 1, 4, 16 and 64 concurrent clients, each answer equal
    to detections_to_json of a direct batch-1 call (same classes and order
    up to score ties, box and score within rtol 1e-4, atol 1e-6);
    requests/s, p50 and p99 latency, batches, images a batch, bucket fill
    and the device's idle share (busy = the device time torch.profiler
    traced over the window, at most its wall time, with at most the
-   window's batches x (1, 58, 1) kernels); the same for the batcher alone (submit of
+   window's batches x (1, 1, 58, 1) kernels); the same for the batcher alone (submit of
    the decoded uint8 arrays); groups that fill a bucket exactly, each
    result equal to the direct call on that bucket bit for bit; then python
    -m yolo_tpu_torch.serve --engine <the engine's artifact> --port 0 as a
@@ -241,8 +243,8 @@ on the int8 conv kernel). Phases:
    gathered within 1e-6, the sharded step's norm within 2x one process's
    distance to float64's, peak memory a rank beside one process's;
 34. a gloo (2, 1) world: make_sharded_int8_engine_fn at global batch 32,
-   each rank's detections == the default engine's on its 16 images, 1 / 58
-   / 1 launches a rank; evaluate_model(mesh=...) fast path with a detecting
+   each rank's detections == the default engine's on its 16 images, 1 / 1
+   / 58 / 1 launches a rank; evaluate_model(mesh=...) fast path with a detecting
    model: 77 keys == one process at batch 16, one NMS launch a rank a batch;
 35. torchrun --standalone --nproc-per-node 2 (gloo on the one card):
    train --mesh-data 2 --orbax-checkpoints, --resume orbax, train
@@ -250,12 +252,12 @@ on the int8 conv kernel). Phases:
 36. (run right after phase 28, on phase 27's engine) the AOT artifact:
    save_compiled_engine's two halves on the full-width default int8 engine
    at batch 16, uint8 wire (export s, save s, MB), load_compiled_engine
-   (s); one eager call of the loaded program launches the stem front,
-   the int8 conv and NMS exactly (1, 58, 1) times (counts zeroed just
-   before); its CUDA-graph replay == the live engine's graph replay bit for
+   (s); one eager call of the loaded program launches the stem front, the
+   max-pool, the int8 conv and NMS exactly (1, 1, 58, 1) times (counts
+   zeroed just before); its CUDA-graph replay == the live engine's graph replay bit for
    bit on two seeded image sets, the replay's kernels by torch.profiler,
    both replays' ms and both eager calls' ms (CUDA events, in turns); host
-   us a call of each of the three custom ops against its wrapper, under
+   us a call of each of three custom ops against its wrapper, under
    inference_mode as the engines run them; a CPU-device load is refused;
    serve --compiled returns a GraphedPredict with the bucket (16,).
 37. the dynamic-int8 quantize (csrc/dyn_quant.cu, a port-only kernel pair
@@ -268,6 +270,11 @@ on the int8 conv kernel). Phases:
    bit for bit, and its GraphedPredict batch_fn at batch 64 replays 24
    quantize calls, 24 int8 convs and 1 NMS a batch, ms a batch against the
    same graph with the twin (CUDA events, in turns).
+38. the int8 max-pool after the stem (csrc/max_pool_int8.cu, a port-only
+   kernel) at the ResNet stem's output, 224x224x64, batch 16, 64 and 256:
+   == the eager twin bit for bit at each; device ms of both from CUDA
+   graphs beside the bound (input read once, output written once, over
+   3.35 TB/s).
 Phases 20-23 drive each harness through its main() with its kernel's
 launch count zeroed just before and read just after.
 
@@ -1636,17 +1643,19 @@ def _int8_model():
 
 
 def _counts():
+    """Launches of the default int8 engine's kernels: stem front, max-pool,
+    int8 conv, NMS."""
     from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem
 
-    return cuda_stem.LAUNCHES, cuda_int8.LAUNCHES, cuda_nms.LAUNCHES
+    return cuda_stem.LAUNCHES, cuda_pool.LAUNCHES, cuda_int8.LAUNCHES, cuda_nms.LAUNCHES
 
 
 def _zero_counts():
     from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem
 
-    cuda_stem.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
+    cuda_stem.LAUNCHES = cuda_pool.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
 
 
 def phase_int8_slice():
@@ -1681,9 +1690,9 @@ def phase_int8_slice():
     out = engine.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
     torch.cuda.synchronize()
     launches = _counts()
-    if launches[:2] != (1, 58) or launches[2] < 1:
-        raise AssertionError(f"one int8 forward must launch the stem kernel once and the conv "
-                             f"kernel 58 times (and NMS), got {launches}")
+    if launches[:3] != (1, 1, 58) or launches[3] < 1:
+        raise AssertionError(f"one int8 forward must launch the stem and max-pool kernels once "
+                             f"and the conv kernel 58 times (and NMS), got {launches}")
     twin = make_int8_engine_fn(S, B, C, conv=plain_conv)(q, images, thr, IOU_T)
     with torch.inference_mode():
         twin_grid = int8_forward(q, images, S=S, conv=plain_conv)
@@ -1694,7 +1703,8 @@ def phase_int8_slice():
             torch.isfinite(out.scores).all() and torch.isfinite(out.boxes).all()):
         raise AssertionError("int8 detections: wrong shape or non-finite values")
     log(f"[12] int8 slice, batch {SLICE_BATCH}, threshold {thr:.6g} (median score): launches "
-        f"stem {launches[0]}, conv {launches[1]}, NMS {launches[2]}; {int(out.valid.sum())} "
+        f"stem {launches[0]}, max-pool {launches[1]}, conv {launches[2]}, NMS {launches[3]}; "
+        f"{int(out.valid.sum())} "
         f"kept; keep masks == the twin path's on the card (grid max |diff| {grid_diff:.3g})")
 
     with torch.inference_mode():
@@ -1738,11 +1748,11 @@ def phase_int8_slice():
             predict.main([*base, "--output", str(out_dir), *flags])
             grew = [a - b for a, b in zip(_counts(), before)]
             written = sorted(p.name for p in out_dir.iterdir())
-            if written != [f"image{k}_pred.jpg" for k in range(8)] or grew[:2] != [1, 58]:
+            if written != [f"image{k}_pred.jpg" for k in range(8)] or grew[:3] != [1, 1, 58]:
                 raise AssertionError(f"predict {flags}: wrote {written}, launches {grew}")
             log(f"[12] python -m yolo_tpu_torch.predict {' '.join(flags[:1])}"
                 f"{' --save-engine' if '--save-engine' in flags else ''}: wrote 8 images, "
-                f"launches stem/conv/NMS {grew}")
+                f"launches stem/pool/conv/NMS {grew}")
         if not artifact.is_file():
             raise AssertionError("predict --save-engine wrote no artifact")
     return engine, model, thr, launches
@@ -2852,12 +2862,12 @@ def phase_eval_slice() -> dict:
             base = ["--checkpoint", str(ckpt), "--data-root", str(tmp / "voc"), "--year",
                     "2007", "--image-set", "trainval", "--batch-size", str(EVAL_BATCH),
                     "--num-workers", "2", "--device", "cuda"]
-            runs = (("fp32 precise", [], (0, 0, n_batches)),
-                    ("fp32 fast", ["--fast-eval"], (0, 0, n_batches)),
+            runs = (("fp32 precise", [], (0, 0, 0, n_batches)),
+                    ("fp32 fast", ["--fast-eval"], (0, 0, 0, n_batches)),
                     ("int8", ["--int8", "--calib-data", "2012:train", "--fast-eval"],
-                     (n_batches, 58 * n_batches, n_batches)),
+                     (n_batches, n_batches, 58 * n_batches, n_batches)),
                     ("engine", ["--engine", str(artifact), "--fast-eval"],
-                     (n_batches, 58 * n_batches, n_batches)))
+                     (n_batches, n_batches, 58 * n_batches, n_batches)))
             results = {}
             for tag, flags, want in runs:
                 report = ckpt.parent / "evaluation_results.txt"
@@ -2869,7 +2879,7 @@ def phase_eval_slice() -> dict:
                 secs = time.perf_counter() - t0
                 launches[tag] = _counts()
                 if launches[tag] != want:
-                    raise AssertionError(f"evaluate {tag}: launches stem/conv/NMS "
+                    raise AssertionError(f"evaluate {tag}: launches stem/pool/conv/NMS "
                                          f"{launches[tag]}, want {want}")
                 if len(results[tag]) != 77 or "Overall metrics" not in report.read_text():
                     raise AssertionError(f"evaluate {tag}: {len(results[tag])} keys, report "
@@ -2877,7 +2887,7 @@ def phase_eval_slice() -> dict:
                 r = results[tag]
                 log(f"[24] python -m yolo_tpu_torch.evaluate {' '.join(flags)}: "
                     f"{EVAL_IMAGES} images in batches of {EVAL_BATCH} at {SIZE}x{SIZE}, "
-                    f"{secs:.1f} s (build and data included); launches stem/conv/NMS "
+                    f"{secs:.1f} s (build and data included); launches stem/pool/conv/NMS "
                     f"{launches[tag]}; mAP50 {r['mAP50']!r}, mAP50:95 {r['mAP50:95']!r}, "
                     f"precision {r['precision']!r}, recall {r['recall']!r}; 77 keys, report "
                     f"written")
@@ -3175,10 +3185,10 @@ def _load(call, clients: int, requests: int) -> tuple:
     return wall, latencies, results
 
 
-# Kernels of one served batch of the default int8 engine: stem front, int8
-# conv, NMS (phase 12).
-SERVED_LAUNCHES = (1, 58, 1)
-SERVED_KERNELS = ("quant_s2d_kernel", "int8_conv_kernel", "nms_kernel")
+# Kernels of one served batch of the default int8 engine: stem front,
+# max-pool, int8 conv, NMS (phase 12).
+SERVED_LAUNCHES = (1, 1, 58, 1)
+SERVED_KERNELS = ("quant_s2d_kernel", "max_pool_int8_kernel", "int8_conv_kernel", "nms_kernel")
 
 
 def _device_activity(prof) -> tuple:
@@ -3238,7 +3248,7 @@ def _launches_seen(tag: str, launches: tuple, want: tuple) -> str:
     make. CUPTI may drop a record, never add one: more than ``want`` raises,
     fewer is reported."""
     if any(a > b for a, b in zip(launches, want)):
-        raise AssertionError(f"{tag}: the trace saw stem/conv/NMS launches {launches}, more "
+        raise AssertionError(f"{tag}: the trace saw stem/pool/conv/NMS launches {launches}, more "
                              f"than the {want} of the path")
     return (f"{launches}" if launches == want else
             f"{launches} of {want} (CUPTI dropped {sum(want) - sum(launches)} record(s))")
@@ -3257,7 +3267,7 @@ def _load_report(tag, card, batcher, before, wall, latencies, busy, launches) ->
             raise AssertionError(f"{tag}: the trace saw {busy:.3f} ms busy in {wall_ms:.3f} ms")
         seen = _launches_seen(tag, launches, tuple(n_batches * k for k in SERVED_LAUNCHES))
         idle = (f"device busy {busy:.3f} ms of {wall_ms:.3f}, idle "
-                f"{100 * (1 - busy / wall_ms):.1f}%; launches stem/conv/NMS {seen}, "
+                f"{100 * (1 - busy / wall_ms):.1f}%; launches stem/pool/conv/NMS {seen}, "
                 f"torch.profiler")
     else:
         idle = "idle not measured (torch.profiler saw no device time)"
@@ -3326,20 +3336,20 @@ def phase_server(fn, q, thr: float, card: str) -> None:
         captured = _counts()
         at_capture = tuple(len(SERVE_BUCKETS) * (WARMUP_RUNS + 1) * k for k in SERVED_LAUNCHES)
         if captured != at_capture:
-            raise AssertionError(f"capturing the served buckets counted stem/conv/NMS "
+            raise AssertionError(f"capturing the served buckets counted stem/pool/conv/NMS "
                                  f"{captured}, want {at_capture}")
         took = time.perf_counter() - t0
         torch.cuda.empty_cache()
         log(f"[28] YOLOServer on http://127.0.0.1:{server.port}, buckets {SERVE_BUCKETS}, "
             f"2 ms: {len(SERVE_BUCKETS)} graphs captured in {took:.1f} s; launches counted "
-            f"at capture (stem/conv/NMS) {captured} (== {len(SERVE_BUCKETS)} buckets x "
+            f"at capture (stem/pool/conv/NMS) {captured} (== {len(SERVE_BUCKETS)} buckets x "
             f"{WARMUP_RUNS + 1} runs x {SERVED_LAUNCHES}); the captures keep "
             f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB reserved")
         bucket_images = {b: _uint8_batch(80, b) for b in SERVE_BUCKETS}
         bucket_ms = {b: cuda_ms(lambda b=b: graphed(bucket_images[b]), iters=20)
                      for b in SERVE_BUCKETS}
         log(f"[28] replay ms a batch by bucket (CUDA events): " + ", ".join(
-            f"{b}: {ms:.4f}" for b, ms in bucket_ms.items()) + "; launches stem/conv/NMS "
+            f"{b}: {ms:.4f}" for b, ms in bucket_ms.items()) + "; launches stem/pool/conv/NMS "
             + _replay_launches(graphed, bucket_images[SERVE_BUCKETS[-1]]))
 
         mismatches = 0
@@ -3449,9 +3459,9 @@ def phase_server(fn, q, thr: float, card: str) -> None:
 def phase_aot(fn, q, thr: float, card: str) -> tuple:
     """The AOT artifact of phase 27's full-width default int8 engine (its q
     and threshold), batch 16, uint8 wire: export, save, size and load; one
-    eager call of the loaded program launches the stem front, the int8 conv
-    and NMS (1, 58, 1) times (counts zeroed just before); its CUDA graph
-    replay == the live engine's bit for bit on two image sets, and both
+    eager call of the loaded program launches the stem front, the max-pool,
+    the int8 conv and NMS (1, 1, 58, 1) times (counts zeroed just before);
+    its CUDA graph replay == the live engine's bit for bit on two image sets, and both
     replay ms and eager ms (CUDA events, in turns); the host us a call of
     each kernel's custom op against its wrapper; a CPU-device load is
     refused; serve
@@ -3494,7 +3504,8 @@ def phase_aot(fn, q, thr: float, card: str) -> tuple:
         launches = _counts()
         if launches != SERVED_LAUNCHES:
             raise AssertionError(f"[36] one eager call of the loaded program launched "
-                                 f"(stem, int8 conv, NMS) {launches}, not {SERVED_LAUNCHES}")
+                                 f"(stem, max-pool, int8 conv, NMS) {launches}, not "
+                                 f"{SERVED_LAUNCHES}")
 
         live = GraphedPredict(lambda images: fn(q, images, thr, IOU_T), dev)
         aot = GraphedPredict(predict, dev)
@@ -3548,8 +3559,8 @@ def phase_aot(fn, q, thr: float, card: str) -> tuple:
                                  f"{buckets}, image size {image_size}")
     log(f"[36] {card}: AOT artifact of the full-width default int8 engine (batch {batch}, "
         f"uint8, conf {thr:.6g}, NMS {IOU_T}): export {t1 - t0:.2f} s, save {t2 - t1:.2f} s, "
-        f"{size_mb:.1f} MB, load {t3 - t2:.2f} s; one eager call launches (stem, int8 conv, "
-        f"NMS) {launches}; replay == the live graph bit for bit on 2 image sets "
+        f"{size_mb:.1f} MB, load {t3 - t2:.2f} s; one eager call launches (stem, max-pool, "
+        f"int8 conv, NMS) {launches}; replay == the live graph bit for bit on 2 image sets "
         f"({kept[0]}, {kept[1]} kept); {replays}")
     log(f"[36] {card}: replay ms/batch in turns live, aot, aot, live: {ms['live'][0]:.4f}, "
         f"{ms['aot'][0]:.4f}, {ms['aot'][1]:.4f}, {ms['live'][1]:.4f} (CUDA events)")
@@ -4078,6 +4089,44 @@ def phase_dynq(card: str) -> dict:
             "bound": (b_sum, "bytes")}
 
 
+# ---------------------------------------------------------------- phase 38
+POOL_BATCHES = (16, 64, 256)  # r50-int8-offline-b256's batch last
+
+
+def phase_max_pool(card: str) -> dict:
+    """Phase 38: the int8 max-pool kernel against the eager twin at the
+    ResNet stem's output (N, 224, 224, 64) for each of POOL_BATCHES."""
+    import torch
+
+    from yolo_tpu_torch.serving import cuda_pool
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(38)
+    h = w = SIZE // 2
+    rows = {}
+    for batch in POOL_BATCHES:
+        x = torch.randint(-128, 128, (batch, h, w, 64), generator=g, device=dev,
+                          dtype=torch.int8)
+        got, want = cuda_pool.max_pool_int8(x), cuda_pool.max_pool_int8_reference(x)
+        if not torch.equal(got, want):
+            raise AssertionError(f"max-pool batch {batch}: kernel != twin at "
+                                 f"{int((got != want).sum())} values")
+        del got, want
+        k_ms = graph_ms(lambda: cuda_pool.max_pool_int8(x), iters=10)
+        p_ms = graph_ms(lambda: cuda_pool.max_pool_int8_reference(x), iters=3)
+        n_bytes = cuda_pool.bytes_moved(batch, h, w, 64)
+        b_ms, b_by = bound(n_bytes, 0, 1)
+        rows[batch] = (k_ms, p_ms, b_ms, b_by)
+        log(f"[38] {card}: max-pool ({batch}, {h}, {w}, 64) int8: == twin bit for bit; kernel "
+            f"{k_ms:.4f} ms device (CUDA graphs), bound {b_ms:.4f} ms ({b_by}, "
+            f"{n_bytes / 1e9:.4f} GB; {100 * b_ms / k_ms:.1f}%, {n_bytes / k_ms / 1e6:.0f} "
+            f"GB/s); the eager twin {p_ms:.4f} ms ({p_ms / k_ms:.1f}x)")
+        del x
+        torch.cuda.empty_cache()
+    k_ms, p_ms, b_ms, b_by = rows[POOL_BATCHES[-1]]
+    return {"ms": k_ms, "plain_ms": p_ms, "bound": (b_ms, b_by)}
+
+
 # ---------------------------------------------------------------- phases 33-35
 # Each rank is a process of its own (torch's idiom); the ranks of a world
 # share the one card, so every time they print is two ranks time-sharing one
@@ -4458,13 +4507,13 @@ def phase_parallel_serve(card: str) -> tuple:
     ranks = _world("serve_eval", 2, 1)
     for r, out in enumerate(ranks):
         log(f"[34] rank {r} ({out['backend']}, mesh (2, 1)): sharded int8 engine at global "
-            f"batch {2 * SLICE_BATCH}, threshold {out['thr']:.6g}: launches (stem, int8 conv, "
-            f"NMS) {out['launches']}; detections == the default engine's on its "
+            f"batch {2 * SLICE_BATCH}, threshold {out['thr']:.6g}: launches (stem, max-pool, "
+            f"int8 conv, NMS) {out['launches']}; detections == the default engine's on its "
             f"{SLICE_BATCH} images: {out['equal']} ({out['kept']} kept); gathered "
             f"{out['gathered']}; {out['serve_ms']:.2f} ms a global batch (two ranks "
             f"time-sharing one card over gloo, not a scaling figure); evaluate_model(mesh) "
             f"fast path: NMS launches {out['eval_nms']} for 2 batches")
-        if out["launches"] != (1, 58, 1) or not out["equal"]:
+        if out["launches"] != SERVED_LAUNCHES or not out["equal"]:
             raise AssertionError(f"(34) rank {r}: launches {out['launches']}, equal "
                                  f"{out['equal']}")
         if out["gathered"] != (2 * SLICE_BATCH, S * S * B) or out["eval_nms"] != 2:
@@ -4768,6 +4817,7 @@ def main() -> None:
     remat_launches = timed(31, phase_remat, card)
     quant_launches = timed(32, phase_quantized, card)
     dynq = timed(37, phase_dynq, card)
+    pool = timed(38, phase_max_pool, card)
     log(f"[29-32] launches: NMS {y24_launches} a 24-conv batch; fused-BN {remat_launches} a "
         f"remat='block' fused step; int8 conv {quant_launches} a quantized ResNet50 forward")
     torch.cuda.empty_cache()
@@ -4775,13 +4825,14 @@ def main() -> None:
     par_serve = timed(34, phase_parallel_serve, card)
     timed(35, phase_parallel_clis)
     log(f"[33-35] launches a rank: synchronized step, fused-BN {sync_launches} with "
-        f"{sync_reduces} BN all-reduces; sharded engine (stem, int8 conv, NMS) "
+        f"{sync_reduces} BN all-reduces; sharded engine (stem, max-pool, int8 conv, NMS) "
         f"{par_serve[0]} a batch; "
         f"sharded evaluator NMS {par_serve[1]} for 2 batches")
-    log(f"[36] AOT artifact launches (stem, int8 conv, NMS): {aot_launches} an eager call")
+    log(f"[36] AOT artifact launches (stem, max-pool, int8 conv, NMS): {aot_launches} an eager "
+        f"call")
     log(f"[37] dynq launches: {dynq['launches']} a replay of the quantized 24-conv model")
     log(f"[24] evaluator path launches: NMS {eval_nms} for {len(eval_batches())} metric "
-        f"batches; CLI runs (stem, int8 conv, NMS): {eval_launches}")
+        f"batches; CLI runs (stem, max-pool, int8 conv, NMS): {eval_launches}")
     log("phase seconds: " + ", ".join(f"{k}: {v:.1f}" for k, v in seconds.items()))
 
     # NMS at the slice's shape (16 images, K = 98): device time from a CUDA graph.
@@ -4845,7 +4896,7 @@ def main() -> None:
         "route": "cuda",
         "source": "yolo_tpu_torch/csrc/int8_conv.cu",
         "replaces": "yolo_tpu/serving/pallas_int8.py:470",
-        "launches": i8_launches[1],
+        "launches": i8_launches[2],
         "max_abs_err": i8k["conv_err"],
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -4936,6 +4987,21 @@ def main() -> None:
         "plain_ms": dynq["plain_ms"],
         "bound_ms": dynq["bound"][0],
         "bound_by": dynq["bound"][1],
+        "library_ms": None,
+    })
+    # The int8 max-pool at the stem output of batch 256 (r50-int8-offline-b256's
+    # batch); it replaces no TPU kernel (JAX pools with lax.reduce_window).
+    record["kernels"].append({
+        "name": "max_pool_int8",
+        "route": "cuda",
+        "source": "yolo_tpu_torch/csrc/max_pool_int8.cu",
+        "replaces": None,
+        "launches": i8_launches[1],
+        "max_abs_err": 0.0,
+        "ms": pool["ms"],
+        "plain_ms": pool["plain_ms"],
+        "bound_ms": pool["bound"][0],
+        "bound_by": pool["bound"][1],
         "library_ms": None,
     })
     print(json.dumps(record))

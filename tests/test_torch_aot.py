@@ -18,8 +18,9 @@ the stem front, every int8 conv and NMS as the custom ops of
   requant's multiply and add), which moves a whole image's outputs by
   ~1e-3: every image where the port and JAX's artifact differ by more than
   that tolerance is one where JAX's artifact and its op-by-op forward do.
-- The recorded graph calls the three ops (one ``conv_int8`` an int8 conv)
-  and no convolution; each op passes ``torch.library.opcheck``.
+- The recorded graph calls the four ops (one ``conv_int8`` an int8 conv)
+  and no convolution; each op passes ``torch.library.opcheck`` (the
+  max-pool's at odd and tiny sizes).
 - The refusals, and the serve CLI's ``--save-compiled`` / ``--compiled``.
 
 Every artifact a test writes is deleted at its end.
@@ -176,6 +177,7 @@ def test_artifact_graph_runs_the_three_ops(aot):
     targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
     assert targets.count("yolo_tpu_torch.conv_int8.default") == N_CONVS
     assert targets.count("yolo_tpu_torch.quant_s2d.default") == 1
+    assert targets.count("yolo_tpu_torch.max_pool_int8.default") == 1
     assert targets.count("yolo_tpu_torch.nms_keep.default") == 1
     assert not [t for t in targets if "conv" in t and not t.startswith("yolo_tpu_torch.")]
     # Each weight is held once, in the form the engine reads (fc2: float32).
@@ -205,6 +207,10 @@ def _opcheck_cases():
                                                 [1, 1, 1, 1], "float")),
         "nms_keep": (library.nms_keep, cuda_nms.keep_args(
             decode_predictions(grid, 7, 2, 20, 0.0), NMS_T, 1e-6)),
+        # opcheck holds the fake's shape to the real op's: odd and tiny sizes.
+        "max_pool_int8-7x9": (library.max_pool_int8, (ints(2, 7, 9, 16),)),
+        "max_pool_int8-2x3": (library.max_pool_int8, (ints(3, 2, 3, 16),)),
+        "max_pool_int8-1x1": (library.max_pool_int8, (ints(1, 1, 1, 64),)),
     }
 
 
@@ -213,6 +219,12 @@ def test_op_passes_opcheck(case):
     op, args = _opcheck_cases()[case]
     result = torch.library.opcheck(op, args)
     assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_default_and_aot_impl_carry_the_stem_front_and_max_pool():
+    live, aot = engine.default_impl(), library.aot_impl()
+    assert set(live) == set(aot) == {"stem_front", "max_pool"}
+    assert aot["max_pool"] == torch.ops.yolo_tpu_torch.max_pool_int8
 
 
 def _meta_only(path, meta):

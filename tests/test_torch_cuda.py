@@ -1,5 +1,5 @@
 """The CUDA kernels (NMS, the four fused-BN kernels, the int8 stem front, the
-int8 conv, the fused int8 bottleneck and stage chain, the per-tap int8
+int8 max-pool after the stem, the int8 conv, the fused int8 bottleneck and stage chain, the per-tap int8
 Winograd conv (tap pass + tap GEMM) with its ablation modes, and the
 kernels of the ported experiments/ harnesses: the fused Adam update, the
 int8 dot + requant (the int8 conv's kernel on a 1x1 view), the bf16 3x3
@@ -445,7 +445,7 @@ def test_int8_engine_on_the_card_equals_the_cpu_engine(device):
     q-params on the CPU (the twins): every int8 activation is exact, so the
     grids differ only by the float32 FC sums' order."""
     from yolo_tpu_torch.models import create_model
-    from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem
     from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
                                                int8_forward, to_device)
 
@@ -456,10 +456,10 @@ def test_int8_engine_on_the_card_equals_the_cpu_engine(device):
     _, q = build_int8_predict(model, [calib])
     images = torch.from_numpy(r.integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8))
     ref = int8_forward(q, images, impl=default_impl())
-    stem0, conv0 = cuda_stem.LAUNCHES, cuda_int8.LAUNCHES
+    stem0, pool0, conv0 = cuda_stem.LAUNCHES, cuda_pool.LAUNCHES, cuda_int8.LAUNCHES
     got = int8_forward(to_device(q, device), images.to(device), impl=default_impl())
     torch.cuda.synchronize()
-    assert cuda_stem.LAUNCHES - stem0 == 1
+    assert cuda_stem.LAUNCHES - stem0 == 1 and cuda_pool.LAUNCHES - pool0 == 1
     assert cuda_int8.LAUNCHES - conv0 == 1 + 4 * 3 + 4 + 4 + 1
     tol = 1e-5 * float(ref.abs().max()) + 1e-6
     assert float((got.cpu() - ref).abs().max()) <= tol
@@ -610,6 +610,109 @@ def test_dynq_kernel_rejects_what_it_does_not_take(device):
         cuda_dynq.quantize(torch.ones(0, 3, 4, 4, device=device), c127)
     with pytest.raises(ValueError, match="NCHW"):
         cuda_dynq.quantize(torch.ones(3, 4, 4, device=device), c127)
+
+
+# ------------------------------------------------------------ int8 max-pool
+# The engine's 3x3/s2/p1 max-pool after the stem (csrc/max_pool_int8.cu):
+# integers only, so bit for bit with its twin. The cases are shared with the
+# CPU test of the wrapper against JAX's reduce_window
+# (tests/test_torch_serving.py).
+POOL_CASES = {
+    "stem b2": (2, 224, 224, 64),  # the flagship's stem output
+    "1x1": (1, 1, 1, 64),
+    "2x3": (1, 2, 3, 64),
+    "7x7": (2, 7, 7, 64),
+    "9x15": (1, 9, 15, 64),
+    "9x15 c16": (2, 9, 15, 16),
+    "17x33 c128": (3, 17, 33, 128),  # a partial strip; warps across rows
+    "c512": (1, 6, 5, 512),  # a pixel is a warp
+    "c1024": (1, 5, 4, 1024),  # a pixel spans two warps
+    "all -128": (2, 10, 12, 64),
+    "127 at borders": (2, 11, 12, 64),
+}
+
+
+def pool_input(case: str, device="cpu") -> torch.Tensor:
+    """One case of the max-pool's int8 NHWC input on ``device``."""
+    shape = POOL_CASES[case]
+    if case in ("all -128", "127 at borders"):
+        a = np.full(shape, -128, np.int8)
+        if case == "127 at borders":  # the border windows hold 127 and the padding
+            a[:, [0, -1]] = 127
+            a[:, :, [0, -1]] = 127
+    else:
+        a = np.random.default_rng(sorted(POOL_CASES).index(case)).integers(
+            -128, 128, size=shape, dtype=np.int8)
+    return torch.from_numpy(a).to(device)
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_max_pool_kernel_equals_plain_twin(device, case):
+    from yolo_tpu_torch.serving import cuda_pool
+
+    x = pool_input(case, device)
+    before = cuda_pool.LAUNCHES
+    got = cuda_pool.max_pool_int8(x)
+    torch.cuda.synchronize()
+    assert cuda_pool.LAUNCHES == before + 1
+    want = cuda_pool.max_pool_int8_reference(x)
+    n, h, w, c = x.shape
+    assert got.shape == (n, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c) == want.shape
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), cuda_pool.max_pool_int8_reference(x.cpu()))
+    if case == "all -128":
+        assert bool((got == -128).all())
+    if case == "127 at borders":  # every window on the border: 127, never the padding
+        assert bool((got[:, [0, -1]] == 127).all() and (got[:, :, [0, -1]] == 127).all())
+        assert bool((got[:, 1:-1, 1:-1] == -128).all())
+
+
+def test_max_pool_kernel_replays_in_a_cuda_graph_on_new_data(device):
+    from yolo_tpu_torch.serving import cuda_pool
+
+    g = torch.Generator(device=device).manual_seed(5)
+    static = torch.randint(-128, 128, (4, 56, 56, 64), generator=g, device=device,
+                           dtype=torch.int8)
+    before = cuda_pool.LAUNCHES
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_pool.max_pool_int8(static)  # warm up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_pool.max_pool_int8(static)
+    for _ in range(2):
+        static.copy_(torch.randint(-128, 128, static.shape, generator=g, device=device,
+                                   dtype=torch.int8))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, cuda_pool.max_pool_int8(static))
+        assert torch.equal(out, cuda_pool.max_pool_int8_reference(static))
+    assert cuda_pool.LAUNCHES == before + 4  # warm-up, capture, two eager checks
+
+
+def test_max_pool_kernel_rejects_what_it_does_not_take(device):
+    from yolo_tpu_torch.serving import cuda_pool
+
+    x = torch.zeros(2, 8, 8, 64, dtype=torch.int8, device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_pool.max_pool_int8(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_pool.max_pool_int8(x[:, :, :, :32])
+    with pytest.raises(ValueError, match="aligned"):  # contiguous, one byte into its storage
+        cuda_pool.max_pool_int8(x.reshape(-1)[1:1 + 2 * 8 * 8 * 16].view(2, 8, 8, 16))
+    with pytest.raises(TypeError, match="int8"):
+        cuda_pool.max_pool_int8(x.to(torch.uint8))
+    with pytest.raises(TypeError, match="int8"):
+        cuda_pool.max_pool_int8(x.float())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cuda_pool.max_pool_int8(x[..., :24].contiguous())
+    with pytest.raises(ValueError, match="non-empty"):
+        cuda_pool.max_pool_int8(x[:0])
+    with pytest.raises(ValueError, match="non-empty"):
+        cuda_pool.max_pool_int8(x[0])
 
 
 # ------------------------------------------------------- fused bottlenecks
@@ -1136,9 +1239,9 @@ def _median_score(eager, images):
 
 def _counts():
     from yolo_tpu_torch.serving import cuda_bottleneck as cb
-    from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
+    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem, cuda_wino
 
-    return (cuda_nms.LAUNCHES, cuda_stem.LAUNCHES, cuda_int8.LAUNCHES,
+    return (cuda_nms.LAUNCHES, cuda_stem.LAUNCHES, cuda_pool.LAUNCHES, cuda_int8.LAUNCHES,
             cb.LAUNCHES["chain"], cuda_wino.LAUNCHES["full"])
 
 
@@ -1315,7 +1418,7 @@ def test_spans_inside_a_graph_are_timed_at_every_replay(flagship_engine):
     fn(q, images.cuda(), conf, 0.4)
     torch.cuda.synchronize()
     eager = launch_counts() - before
-    assert eager == {"quant_s2d": 1, "conv_int8": 58, "nms": 1}
+    assert eager == {"quant_s2d": 1, "max_pool": 1, "conv_int8": 58, "nms": 1}
 
     def predict(x):
         with tracing.span("whole"):
@@ -1330,6 +1433,10 @@ def test_spans_inside_a_graph_are_timed_at_every_replay(flagship_engine):
         graphed = GraphedPredict(predict, "cuda")
         for _ in range(calls):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            # ~5 ms of spinning on the card first: its clock then starts after the host has
+            # issued the call, so the events time the device's copy and replay, not the
+            # host's issue time (a fixed ~0.2 ms, which the span never sees).
+            torch.cuda._sleep(10_000_000)
             start.record()
             out = graphed(on_card)
             end.record()

@@ -181,7 +181,7 @@ def test_kernel_build_flags():
     assert (PORT / "csrc" / "nms.cu").is_file()
     assert [p.name for p in kernels.sources()] == [
         "adam_update.cu", "bf16_bottleneck.cu", "bf16_conv_stats.cu", "dyn_quant.cu", "fused_bn.cu",
-        "int8_bottleneck.cu", "int8_conv.cu", "int8_wino.cu", "nms.cu",
+        "int8_bottleneck.cu", "int8_conv.cu", "int8_wino.cu", "max_pool_int8.cu", "nms.cu",
         "quant_s2d.cu", "bf16_common.cuh", "int8_common.cuh", "sm90_bottleneck_tile.cuh",
         "sm90_conv_core.cuh"]
     flags = " ".join(kernels.NVCC_FLAGS)

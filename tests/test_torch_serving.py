@@ -39,8 +39,9 @@ from yolo_tpu.serving import quantize_folded as jquantize
 from yolo_tpu_torch.convert import state_dict_from_jax
 from yolo_tpu_torch.inference import YOLOInference
 from yolo_tpu_torch.models import create_model
-from yolo_tpu_torch.serving import cuda_stem, engine, export, fold, quant
+from yolo_tpu_torch.serving import cuda_pool, cuda_stem, engine, export, fold, quant
 
+from test_torch_cuda import POOL_CASES, pool_input
 from test_torch_inference import assert_same_detections, comparable_batch, randomize
 
 STAGES = (1, 1, 1, 1)
@@ -186,9 +187,22 @@ def _jax_stem(q, images):
             dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
     else:
         acc = jengine._conv_i8(jengine._quantize_input(x, q["s_img"]), wq, stride=2, pad=3)
-    x_q = jengine._requant(acc, q["stem"]["m"], q["stem"]["t"])
+    return _jax_max_pool(jengine._requant(acc, q["stem"]["m"], q["stem"]["t"]))
+
+
+def _jax_max_pool(x_q):
+    """The JAX engine's 3x3/s2/p1 int8 max-pool after the stem."""
     return jax.lax.reduce_window(x_q, jnp.int8(-128), jax.lax.max, (1, 3, 3, 1), (1, 2, 2, 1),
                                  ((0, 0), (1, 1), (1, 1), (0, 0)))
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_max_pool_wrapper_on_the_cpu_equals_jax_reduce_window(case):
+    """``cuda_pool.max_pool_int8`` on a CPU tensor (its twin) against JAX's
+    pool, on the cases its kernel is held to on the card."""
+    x = pool_input(case)
+    got = cuda_pool.max_pool_int8(x)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_jax_max_pool(jnp.asarray(x.numpy()))))
 
 
 @pytest.mark.parametrize("stem", ["s2d", "direct"])

@@ -392,14 +392,17 @@ def test_the_batcher_counts_its_fill_with_tracing_off():
 
 
 def test_launch_counts_name_every_serving_kernel_counter(monkeypatch):
-    from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_wino, library
+    from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_pool, cuda_wino, library
 
     before = library.launch_counts()
-    assert {"quant_s2d", "conv_int8", "nms", "bottleneck", "chain", "wino.full"} <= set(before)
+    assert {"quant_s2d", "max_pool", "conv_int8", "nms", "bottleneck", "chain",
+            "wino.full"} <= set(before)
     monkeypatch.setattr(cuda_int8, "LAUNCHES", cuda_int8.LAUNCHES + 3)
+    monkeypatch.setattr(cuda_pool, "LAUNCHES", cuda_pool.LAUNCHES + 1)
     monkeypatch.setitem(cuda_bottleneck.LAUNCHES, "chain", cuda_bottleneck.LAUNCHES["chain"] + 2)
     monkeypatch.setitem(cuda_wino.LAUNCHES, "full", cuda_wino.LAUNCHES["full"] + 1)
-    assert library.launch_counts() - before == {"conv_int8": 3, "chain": 2, "wino.full": 1}
+    assert library.launch_counts() - before == {"conv_int8": 3, "max_pool": 1, "chain": 2,
+                                                "wino.full": 1}
 
 
 class FakeGraph:

@@ -12,7 +12,9 @@ bottlenecks as fused kernels instead, and opt-in per-conv hooks
 named by ``wino=`` as per-tap int8 Winograd convs (``serving/winograd.py``,
 kernel ``csrc/int8_wino.cu``). The stem front (normalize,
 quantize, space-to-depth) is the kernel ``csrc/quant_s2d.cu``
-(``serving/cuda_stem.py``) under :func:`default_impl`, at any batch. The FC
+(``serving/cuda_stem.py``) and the 3x3/s2 max-pool after the stem is the
+kernel ``csrc/max_pool_int8.cu`` (``serving/cuda_pool.py``) under
+:func:`default_impl`, at any batch. The FC
 stack runs in bfloat16 values with float32 sums, and the decode + NMS tail
 (ops/decode.py, ops/cuda_nms.py) is the exact engine's.
 
@@ -31,12 +33,11 @@ import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from yolo_tpu_torch.data.transforms import device_normalize
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.decode import Detections, decode_predictions
-from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
+from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem, cuda_wino
 from yolo_tpu_torch.utils import tracing
 
 #: Keys :func:`to_device` derives from the q-params (not part of an artifact).
@@ -62,18 +63,9 @@ def _normalize_if_uint8(images: torch.Tensor) -> torch.Tensor:
     return images.to(torch.float32)
 
 
-def max_pool_int8(x: torch.Tensor) -> torch.Tensor:
-    """3x3/s2/p1 max-pool of NHWC int8, padding -128 (the JAX engine's
-    ``reduce_window`` with init -128): the max of 9 strided views, exact."""
-    n, h, w, c = x.shape
-    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=-128)
-    out = None
-    for di in range(3):
-        for dj in range(3):
-            v = xp[:, di:di + 2 * ho - 1:2, dj:dj + 2 * wo - 1:2, :]
-            out = v if out is None else torch.maximum(out, v)
-    return out.contiguous()
+#: The max-pool after the stem without a hook: the kernel's plain twin (JAX's
+#: ``reduce_window`` with init -128), on any device.
+max_pool_int8 = cuda_pool.max_pool_int8_reference
 
 
 def _block(x_q, qb, stride: int = 1, conv: Callable = kernel_conv,
@@ -117,6 +109,8 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
     ``images``: normalized float images, or raw resized uint8 RGB.
     ``impl["stem_front"]`` (see :func:`default_impl`) replaces the eager
     normalize + space-to-depth + quantize of the s2d stem;
+    ``impl["max_pool"]`` the eager 3x3/s2 max-pool after the stem
+    (:data:`max_pool_int8`);
     ``impl["layer1"]`` .. ``impl["layer4"]`` run a stage's stride-1 blocks
     (e.g. ``cuda_bottleneck.chain_int8``, one fused launch per stage; the
     JAX engine's W padding to 32 columns was a TPU constraint and is gone);
@@ -142,7 +136,7 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
         x_q = cuda_stem.quantize_input(_normalize_if_uint8(images), q["s_img"])
         x_q = conv(x_q, stem, 2, 3, "relu")
     with tracing.span("engine.max_pool"):
-        x_q = max_pool_int8(x_q)
+        x_q = impl.get("max_pool", max_pool_int8)(x_q)
 
     for si, blocks in enumerate(q["layers"]):
         # impl[f"layer{i}"] is a stage-chain hook (x_q, qblocks) -> x_q over
@@ -191,8 +185,8 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
 
 
 def default_impl() -> Dict:
-    """The engine's default stage map: the stem-front kernel, at any batch."""
-    return {"stem_front": cuda_stem.quant_s2d}
+    """The engine's default stage map: the stem-front and max-pool kernels, at any batch."""
+    return {"stem_front": cuda_stem.quant_s2d, "max_pool": cuda_pool.max_pool_int8}
 
 
 def to_device(q: Dict, device) -> Dict:

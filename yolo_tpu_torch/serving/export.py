@@ -19,7 +19,7 @@ The AOT artifact (:func:`save_compiled_engine`, :func:`load_compiled_engine`)
 freezes the whole served graph, not just its parameters: the int8 forward,
 decode and NMS with the thresholds, batch and image size baked in, recorded
 by ``torch.export`` into one ``.pt2`` with the q-params as the program's
-buffers. The three kernels are custom ops in it (``serving/library.py``).
+buffers. The four kernels are custom ops in it (``serving/library.py``).
 The JAX package's AOT artifact is StableHLO in an ``.npz``, which torch
 cannot run: re-export from its q-params (``serve --engine X.npz
 --save-compiled Y.pt2``).

@@ -1,4 +1,4 @@
-"""The serving engine's three kernels as ``torch.library`` custom ops.
+"""The serving engine's four kernels as ``torch.library`` custom ops.
 
 ``torch.export`` records what the engine computes as an ATen graph. A kernel
 behind ``ctypes`` is not an ATen op, and NMS's plain twin branches on the
@@ -9,6 +9,8 @@ exported graph:
 
 - ``yolo_tpu_torch::quant_s2d`` -- the stem front, ``serving/cuda_stem.py``
   (kernel ``csrc/quant_s2d.cu``);
+- ``yolo_tpu_torch::max_pool_int8`` -- the max-pool after the stem,
+  ``serving/cuda_pool.py`` (kernel ``csrc/max_pool_int8.cu``);
 - ``yolo_tpu_torch::conv_int8`` -- every int8 conv and int8 fc1,
   ``serving/cuda_int8.py`` (kernel ``csrc/int8_conv.cu``);
 - ``yolo_tpu_torch::nms_keep`` -- the NMS keep mask, ``ops/cuda_nms.py``
@@ -21,7 +23,7 @@ tensor never reaches the twin. :func:`aot_impl`, :func:`aot_conv` and
 (``engine.make_int8_engine_fn(..., impl=, nms_fn=, conv=)``) and call the
 ops; ``export.save_compiled_engine`` builds its engine with them.
 :func:`launch_counts` reads every serving kernel wrapper's ``LAUNCHES``:
-these three, the fused chain's and Winograd's, and ``cuda_dynq``'s (the
+these four, the fused chain's and Winograd's, and ``cuda_dynq``'s (the
 quantize in front of each ``Int8Conv2d``, which only the uncalibrated
 ``quantized=True`` models run, so it has no op either).
 
@@ -42,7 +44,8 @@ import torch
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.boxes import EPSILON
 from yolo_tpu_torch.ops.decode import Detections
-from yolo_tpu_torch.serving import cuda_bottleneck, cuda_dynq, cuda_int8, cuda_stem, cuda_wino
+from yolo_tpu_torch.serving import (cuda_bottleneck, cuda_dynq, cuda_int8, cuda_pool, cuda_stem,
+                                    cuda_wino)
 
 NAMESPACE = "yolo_tpu_torch"
 _DEVICES = ("cpu", "cuda")
@@ -59,6 +62,18 @@ def _(images, s_img):
     cuda_stem._check(images, s_img)
     n, h, w, _ = images.shape
     return images.new_empty((n, h // 2, w // 2, 12), dtype=torch.int8)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::max_pool_int8", mutates_args=(), device_types=_DEVICES)
+def max_pool_int8(x: torch.Tensor) -> torch.Tensor:
+    """``cuda_pool.max_pool_int8``: (N, H, W, C) int8 -> (N, (H-1)//2+1, (W-1)//2+1, C)."""
+    return cuda_pool.max_pool_int8(x)
+
+
+@max_pool_int8.register_fake
+def _(x):
+    n, h, w, c = x.shape
+    return x.new_empty((n, *cuda_pool.out_size(h, w), c), dtype=torch.int8)
 
 
 def _pad_pairs(pad: Sequence[int]):
@@ -108,8 +123,9 @@ def aot_conv(x, qc: Dict, stride: int = 1, pad=0, mode: str = "relu", res=None, 
 
 
 def aot_impl() -> Dict:
-    """``engine.default_impl`` through ``quant_s2d``."""
-    return {"stem_front": torch.ops.yolo_tpu_torch.quant_s2d}
+    """``engine.default_impl`` through ``quant_s2d`` and ``max_pool_int8``."""
+    return {"stem_front": torch.ops.yolo_tpu_torch.quant_s2d,
+            "max_pool": torch.ops.yolo_tpu_torch.max_pool_int8}
 
 
 def aot_nms(dets: Detections, iou_threshold: float = 0.4, eps: float = EPSILON) -> Detections:
@@ -120,8 +136,9 @@ def aot_nms(dets: Detections, iou_threshold: float = 0.4, eps: float = EPSILON) 
 
 def launch_counts() -> Counter:
     """The serving kernel wrappers' launch counters, by kernel name."""
-    counts = Counter(quant_s2d=cuda_stem.LAUNCHES, conv_int8=cuda_int8.LAUNCHES,
-                     nms=cuda_nms.LAUNCHES, dynq=cuda_dynq.LAUNCHES)
+    counts = Counter(quant_s2d=cuda_stem.LAUNCHES, max_pool=cuda_pool.LAUNCHES,
+                     conv_int8=cuda_int8.LAUNCHES, nms=cuda_nms.LAUNCHES,
+                     dynq=cuda_dynq.LAUNCHES)
     counts.update(cuda_bottleneck.LAUNCHES)
     counts.update({f"wino.{mode}": n for mode, n in cuda_wino.LAUNCHES.items()})
     return counts

@@ -124,6 +124,7 @@ def load() -> ctypes.CDLL:
             lib.yolo_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
             lib.yolo_quant_s2d.argtypes = [vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp]
             lib.yolo_dynq.argtypes = [vp, cll, vp, vp, ci, vp]
+            lib.yolo_max_pool_int8.argtypes = [vp, vp, ci, ci, ci, ci, vp]
             lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 16), vp, vp]
             ptrs = ctypes.POINTER(vp)
             lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), ctypes.POINTER(ci), vp]
@@ -136,7 +137,8 @@ def load() -> ctypes.CDLL:
             lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 7), vp]
             for fn in (lib.yolo_nms, lib.yolo_nms_f64, lib.yolo_empty, lib.yolo_bn_stats,
                        lib.yolo_bn_normalize, lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx,
-                       lib.yolo_quant_s2d, lib.yolo_dynq, lib.yolo_int8_conv,
+                       lib.yolo_quant_s2d, lib.yolo_dynq, lib.yolo_max_pool_int8,
+                       lib.yolo_int8_conv,
                        lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
                        lib.yolo_int8_wino_taps, lib.yolo_int8_wino_gemm, lib.yolo_adam_update,
                        lib.yolo_bf16_conv3x3, lib.yolo_bf16_bottleneck):
