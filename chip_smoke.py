@@ -563,9 +563,8 @@ def empty_launch_ms(blocks: int, threads: int) -> float:
 
     from yolo_tpu_torch.utils import kernels
 
-    lib = kernels.load()
-    return graph_ms(lambda: kernels.check(
-        lib.yolo_empty(blocks, threads, torch.cuda.current_stream().cuda_stream), "yolo_empty"))
+    device = torch.device("cuda", torch.cuda.current_device())
+    return graph_ms(lambda: kernels.launch("yolo_empty", device, blocks, threads))
 
 
 def _case(seed: int, n: int, K: int, kind: str):
@@ -660,10 +659,10 @@ def phase_slice():
     from yolo_tpu_torch.data.transforms import device_normalize
     from yolo_tpu_torch.inference import YOLOInference
     from yolo_tpu_torch.models import create_model
-    from yolo_tpu_torch.ops import cuda_nms
     from yolo_tpu_torch.ops.cuda_nms import nms_reference
     from yolo_tpu_torch.ops.decode import Detections, decode_predictions, threshold_mask
     from yolo_tpu_torch.ops.nms import batched_nms
+    from yolo_tpu_torch.utils import kernels
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -681,10 +680,10 @@ def phase_slice():
     thr = float(all_scores.float().median())
     thr_cli = float(all_scores.float().quantile(0.9))  # fewer lines to print
 
-    cuda_nms.LAUNCHES = 0
+    _zero_counts(("yolo_nms",))
     out = engine.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
     torch.cuda.synchronize()
-    launches = cuda_nms.LAUNCHES
+    launches = kernels.LAUNCHES["yolo_nms"]
     if launches < 1:
         raise AssertionError("the slice did not launch the NMS kernel")
 
@@ -731,7 +730,7 @@ def phase_entry_point(engine, thr: float) -> None:
     from PIL import Image
 
     from yolo_tpu_torch import predict
-    from yolo_tpu_torch.ops import cuda_nms
+    from yolo_tpu_torch.utils import kernels
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -743,14 +742,14 @@ def phase_entry_point(engine, thr: float) -> None:
         for k in range(3):
             Image.fromarray(r.integers(0, 256, size=(375, 500, 3), dtype=np.uint8)).save(
                 img_dir / f"image{k}.jpg")
-        before = cuda_nms.LAUNCHES
+        before = kernels.LAUNCHES["yolo_nms"]
         predict.main(["--checkpoint", str(ckpt), "--image-dir", str(img_dir),
                       "--output", str(out_dir), "--device", "cuda",
                       f"--conf-threshold={thr}"])
         written = sorted(p.name for p in out_dir.iterdir())
         if written != [f"image{k}_pred.jpg" for k in range(3)]:
             raise AssertionError(f"predict CLI wrote {written}")
-        if cuda_nms.LAUNCHES <= before:
+        if kernels.LAUNCHES["yolo_nms"] <= before:
             raise AssertionError("the predict CLI did not launch the NMS kernel")
     log(f"[5] python -m yolo_tpu_torch.predict --device cuda: wrote {written}")
 
@@ -1062,18 +1061,17 @@ def phase_train_slice() -> dict:
         f"channels_last, batch {SLICE_BATCH}, "
         f"{sum(isinstance(m, torch.nn.BatchNorm2d) for m in fused.modules())} BN layers")
 
-    for k in fb.LAUNCHES:
-        fb.LAUNCHES[k] = 0
+    _zero_counts(BN_ENTRIES.values())
     fb.RELAYOUTS = 0
     parts_f = t_fused.train_step(images, targets)
     torch.cuda.synchronize()
-    step1 = dict(fb.LAUNCHES)
+    step1 = _bn_launches()
     parts_p = t_plain.train_step(images, targets)
     torch.cuda.synchronize()
     log(f"[8] launches in one fused step: {step1}; relayout copies: {fb.RELAYOUTS}")
-    if step1 != dict.fromkeys(fb.LAUNCHES, 53):
+    if step1 != dict.fromkeys(BN_ENTRIES, 53):
         raise AssertionError(f"a fused step must launch each kernel 53 times, got {step1}")
-    if fb.LAUNCHES != step1:
+    if _bn_launches() != step1:
         raise AssertionError("the unfused step launched fused-BN kernels")
     grads64 = _float64_grads(ref64, images, targets)
     del ref64
@@ -1128,8 +1126,8 @@ def phase_train_slice() -> dict:
     for _ in range(3):
         losses.append(float(t_fused.train_step(images, targets)["total"]))
     torch.cuda.synchronize()
-    launches = dict(fb.LAUNCHES)
-    if launches != dict.fromkeys(fb.LAUNCHES, 4 * 53):
+    launches = _bn_launches()
+    if launches != dict.fromkeys(BN_ENTRIES, 4 * 53):
         raise AssertionError(f"4 fused steps must launch each kernel 212 times, got {launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
@@ -1142,10 +1140,10 @@ def phase_train_slice() -> dict:
     del t_fused
     fused.load_state_dict(init_sd)
     fused.head.fc_layers[3].fixed_mask = mask
-    before = dict(fb.LAUNCHES)
+    before = _bn_launches()
     loss = float(_trainer(fused, use_amp=True).train_step(images, targets)["total"])
     torch.cuda.synchronize()
-    grew = {k: fb.LAUNCHES[k] - before[k] for k in before}
+    grew = {k: n - before[k] for k, n in _bn_launches().items()}
     if not abs(loss - pf["total"]) <= 5e-2 * pf["total"] or grew != dict.fromkeys(before, 53):
         raise AssertionError(f"bf16 step: loss {loss} (fp32 {pf['total']}), launches {grew}")
     log(f"[8] bf16 autocast fused step from the step-1 weights: loss {loss:.4f} (fp32 "
@@ -1155,10 +1153,10 @@ def phase_train_slice() -> dict:
     stats_model = _model("stats", init_sd)
     stats_model.head.fc_layers[3].fixed_mask = mask
     del init_sd
-    before = dict(fb.LAUNCHES)
+    before = _bn_launches()
     loss = float(_trainer(stats_model).train_step(images, targets)["total"])
     torch.cuda.synchronize()
-    grew = {k: fb.LAUNCHES[k] - before[k] for k in before}
+    grew = {k: n - before[k] for k, n in _bn_launches().items()}
     if not abs(loss - pf["total"]) <= 1e-4 * pf["total"] or grew != {
             "stats": 53, "normalize": 0, "bwd_reduce": 0, "bwd_dx": 0}:
         raise AssertionError(f"stats-mode step: loss {loss} (full {pf['total']}), "
@@ -1642,20 +1640,31 @@ def _int8_model():
                         generator=torch.Generator(device=dev).manual_seed(0))
 
 
-def _counts():
-    """Launches of the default int8 engine's kernels: stem front, max-pool,
-    int8 conv, NMS."""
-    from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem
+#: The C entry points of the default int8 engine's kernels: stem front,
+#: max-pool, int8 conv, NMS.
+SERVED_ENTRIES = ("yolo_quant_s2d", "yolo_max_pool_int8", "yolo_int8_conv", "yolo_nms")
+#: The C entry points of the fused-BN kernels, by kernel.
+BN_ENTRIES = {"stats": "yolo_bn_stats", "normalize": "yolo_bn_normalize",
+              "bwd_reduce": "yolo_bn_bwd_reduce", "bwd_dx": "yolo_bn_bwd_dx"}
 
-    return cuda_stem.LAUNCHES, cuda_pool.LAUNCHES, cuda_int8.LAUNCHES, cuda_nms.LAUNCHES
+
+def _counts(entries=SERVED_ENTRIES) -> tuple:
+    """Launches of ``entries`` since they were last zeroed (``kernels.LAUNCHES``)."""
+    from yolo_tpu_torch.utils import kernels
+
+    return tuple(kernels.LAUNCHES[name] for name in entries)
 
 
-def _zero_counts():
-    from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem
+def _zero_counts(entries=SERVED_ENTRIES) -> None:
+    from yolo_tpu_torch.utils import kernels
 
-    cuda_stem.LAUNCHES = cuda_pool.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
+    for name in entries:
+        kernels.LAUNCHES[name] = 0
+
+
+def _bn_launches() -> dict:
+    """The fused-BN kernels' launches since they were last zeroed, by kernel."""
+    return dict(zip(BN_ENTRIES, _counts(BN_ENTRIES.values())))
 
 
 def phase_int8_slice():
@@ -1666,8 +1675,8 @@ def phase_int8_slice():
     from yolo_tpu_torch.data.transforms import device_normalize
     from yolo_tpu_torch.inference import YOLOInference
     from yolo_tpu_torch.ops.decode import decode_predictions
-    from yolo_tpu_torch.serving.engine import (default_impl, int8_forward, make_int8_engine_fn,
-                                               plain_conv)
+    from yolo_tpu_torch.serving import cuda_pool, cuda_stem
+    from yolo_tpu_torch.serving.engine import int8_forward, make_int8_engine_fn, plain_conv
 
     dev = torch.device("cuda")
     model = _int8_model()
@@ -1683,7 +1692,7 @@ def phase_int8_slice():
     images = torch.from_numpy(np.random.default_rng(7).integers(
         0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
     with torch.inference_mode():
-        grid = int8_forward(q, images, S=S, impl=default_impl())
+        grid = int8_forward(q, images, S=S)
     thr = float(decode_predictions(grid, S, B, C, float("-inf")).scores.float().median())
 
     _zero_counts()
@@ -1693,9 +1702,11 @@ def phase_int8_slice():
     if launches[:3] != (1, 1, 58) or launches[3] < 1:
         raise AssertionError(f"one int8 forward must launch the stem and max-pool kernels once "
                              f"and the conv kernel 58 times (and NMS), got {launches}")
-    twin = make_int8_engine_fn(S, B, C, conv=plain_conv)(q, images, thr, IOU_T)
+    twins = {"stem_front": cuda_stem.quant_s2d_reference,
+             "max_pool": cuda_pool.max_pool_int8_reference}
+    twin = make_int8_engine_fn(S, B, C, impl=twins, conv=plain_conv)(q, images, thr, IOU_T)
     with torch.inference_mode():
-        twin_grid = int8_forward(q, images, S=S, conv=plain_conv)
+        twin_grid = int8_forward(q, images, S=S, impl=twins, conv=plain_conv)
     grid_diff = float((grid - twin_grid).abs().max())
     if not torch.equal(out.valid, twin.valid):
         raise AssertionError("int8 keep masks differ from the twin path's on the card")
@@ -1928,20 +1939,10 @@ def phase_chain_kernels(card: str) -> dict:
 
 
 # ---------------------------------------------------------------- phase 15
-def _chain_counts():
-    from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_stem
-
-    return (cuda_stem.LAUNCHES, cuda_int8.LAUNCHES, cuda_bottleneck.LAUNCHES["chain"],
-            cuda_bottleneck.LAUNCHES["bottleneck"], cuda_nms.LAUNCHES)
-
-
-def _zero_chain_counts():
-    from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_stem
-
-    cuda_stem.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
-    cuda_bottleneck.LAUNCHES.update(chain=0, bottleneck=0)
+#: The C entry points of the chained int8 engine: stem front, int8 conv,
+#: chain, block, NMS.
+CHAIN_ENTRIES = ("yolo_quant_s2d", "yolo_int8_conv", "yolo_int8_chain", "yolo_int8_bottleneck",
+                 "yolo_nms")
 
 
 def phase_chain_slice(model):
@@ -1950,21 +1951,21 @@ def phase_chain_slice(model):
     from yolo_tpu_torch.data.transforms import device_normalize
     from yolo_tpu_torch.ops.decode import decode_predictions
     from yolo_tpu_torch.serving import cuda_bottleneck as cb
-    from yolo_tpu_torch.serving.engine import (_block, build_int8_predict, default_impl,
-                                               int8_forward, make_int8_engine_fn)
+    from yolo_tpu_torch.serving.engine import (_block, build_int8_predict, int8_forward,
+                                               make_int8_engine_fn)
 
     dev = torch.device("cuda")
     r = np.random.default_rng(43)
     calib = [device_normalize(torch.from_numpy(
         r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)) for _ in range(2)]
     layers = [f"layer{i}" for i in range(1, 5)]
-    chain_impl = {**default_impl(), **{name: cb.chain_int8 for name in layers}}
+    chain_impl = {name: cb.chain_int8 for name in layers}
     chained, q = build_int8_predict(model, calib, impl=chain_impl)
-    default = make_int8_engine_fn(S, B, C, impl=default_impl())
+    default = make_int8_engine_fn(S, B, C)
     images = torch.from_numpy(np.random.default_rng(7).integers(
         0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
     with torch.inference_mode():
-        want = int8_forward(q, images, S=S, impl=default_impl())
+        want = int8_forward(q, images, S=S)
     thr = float(decode_predictions(want, S, B, C, float("-inf")).scores.float().median())
     ref = default(q, images, thr, IOU_T)
 
@@ -1974,16 +1975,16 @@ def phase_chain_slice(model):
             x = cb.block_int8(x, qb) if qb["downsample"] is None else _block(x, qb, 1)
         return x
 
-    blocks_impl = {**default_impl(), **{name: blocks_hook for name in layers}}
+    blocks_impl = {name: blocks_hook for name in layers}
     runs = (("chains on layers 1-4", chained, chain_impl, (1, 18, 4, 0)),
             ("identity blocks via block_int8", make_int8_engine_fn(S, B, C, impl=blocks_impl),
              blocks_impl, (1, 22, 0, 12)))
     launches = {}
     for name, fn, impl, expect in runs:
-        _zero_chain_counts()
+        _zero_counts(CHAIN_ENTRIES)
         dets = fn(q, images, thr, IOU_T)
         torch.cuda.synchronize()
-        launches[name] = _chain_counts()
+        launches[name] = _counts(CHAIN_ENTRIES)
         if launches[name][:4] != expect or launches[name][4] < 1:
             raise AssertionError(f"{name}: launches stem/conv/chain/block/NMS "
                                  f"{launches[name]}, expected {expect} and NMS")
@@ -2146,7 +2147,7 @@ def phase_wino_kernels(card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(61)
     rand_i8 = lambda shape: torch.randint(  # noqa: E731
         -127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
-    out = {"conv": {}, "modes": {}, "err": 0.0, "mode_err": 0.0}
+    out = {"conv": {}, "modes": {}, "mode_launches": {}, "err": 0.0, "mode_err": 0.0}
     for name, h, c, k, leaky in WINO_CONVS:
         qc = {"wino": _rand_qwino(g, c, k)}
         for batch in (2, SLICE_BATCH):
@@ -2221,7 +2222,9 @@ def phase_wino_kernels(card: str) -> dict:
     qw = _rand_qwino(g, c, k)
     x = rand_i8((SLICE_BATCH, h, h, c))
     zeros = cuda_wino.zero_taps(x)  # the dots modes' taps, zero-filled outside the timing
-    for mode in cuda_wino.MODES:
+    both = cuda_wino.ENTRIES["full"]  # the tap pass and the tap GEMM
+    for mode, entries in cuda_wino.ENTRIES.items():
+        _zero_counts(both)
         got = cuda_wino.wino_ablate(x, qw, mode, zeros)
         ref = cuda_wino.wino_ablate_reference(x, qw, mode)
         out["mode_err"] = max(out["mode_err"], float((got.int() - ref.int()).abs().max()))
@@ -2232,16 +2235,22 @@ def phase_wino_kernels(card: str) -> dict:
         p_ms = cuda_ms(lambda: cuda_wino.wino_ablate_reference(x, qw, mode), iters=2, warmup=1)
         b_ms, b_by = _wino_bound(SLICE_BATCH, h, c, k, mode)
         out["modes"][mode] = (k_ms, p_ms, b_ms, b_by)
+        # The mode's own C calls: one each of its entries a kernel call
+        # (the check, the timing's warm-up and its iterations), none of the others.
+        launched = dict(zip(both, _counts(both)))
+        n = out["mode_launches"][mode] = launched[entries[0]]
+        if n < 1 or launched != {e: n if e in entries else 0 for e in launched}:
+            raise AssertionError(f"wino mode {mode} must launch {entries} alike, got {launched}")
         log(f"[17] {card}: wino mode {mode}, head.conv1 geometry, batch {SLICE_BATCH}: == twin "
             f"bit for bit; kernel {k_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}), twin "
-            f"{p_ms:.3f} ms")
+            f"{p_ms:.3f} ms; launches {launched}")
     del x, qw, zeros
 
     # The ablation's own entry point at its defaults (batch 256, 14x14,
     # 1024 -> 1024): the path of the ablation modes, counted.
-    cuda_wino.LAUNCHES.update(dict.fromkeys(cuda_wino.MODES, 0))
+    _zero_counts(both)
     out["ablation"] = wino_ablate.run()
-    out["ablation_launches"] = dict(cuda_wino.LAUNCHES)
+    out["ablation_launches"] = dict(zip(both, _counts(both)))
     if min(out["ablation_launches"].values()) < 1:
         raise AssertionError(f"wino_ablate launched {out['ablation_launches']}")
     ab = out["ablation"]
@@ -2254,19 +2263,10 @@ def phase_wino_kernels(card: str) -> dict:
 
 
 # ---------------------------------------------------------------- phase 18
-def _wino_counts():
-    from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
-
-    return cuda_stem.LAUNCHES, cuda_int8.LAUNCHES, cuda_wino.LAUNCHES["full"], cuda_nms.LAUNCHES
-
-
-def _zero_wino_counts():
-    from yolo_tpu_torch.ops import cuda_nms
-    from yolo_tpu_torch.serving import cuda_int8, cuda_stem, cuda_wino
-
-    cuda_stem.LAUNCHES = cuda_int8.LAUNCHES = cuda_nms.LAUNCHES = 0
-    cuda_wino.LAUNCHES.update(dict.fromkeys(cuda_wino.MODES, 0))
+#: The C entry points of the Winograd int8 engine: stem front, int8 conv,
+#: the Winograd tap pass and tap GEMM (``cuda_wino.ENTRIES["full"]``), NMS.
+WINO_ENGINE_ENTRIES = ("yolo_quant_s2d", "yolo_int8_conv", "yolo_int8_wino_taps",
+                       "yolo_int8_wino_gemm", "yolo_nms")
 
 
 def phase_wino_slice(model):
@@ -2277,7 +2277,7 @@ def phase_wino_slice(model):
     from yolo_tpu_torch.data.transforms import device_normalize
     from yolo_tpu_torch.inference import YOLOInference
     from yolo_tpu_torch.ops.decode import decode_predictions
-    from yolo_tpu_torch.serving.engine import default_impl, int8_forward, make_int8_engine_fn
+    from yolo_tpu_torch.serving.engine import int8_forward, make_int8_engine_fn
     from yolo_tpu_torch.serving.winograd import (conv3x3_wino_rq, valid_points,
                                                  wino_impl_hooks, wino_points_of)
 
@@ -2295,21 +2295,21 @@ def phase_wino_slice(model):
     q = engine._int8_state["q"]
     images = torch.from_numpy(np.random.default_rng(7).integers(
         0, 256, size=(SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)
-    kernel_impl = wino_impl_hooks(wino, default_impl())
-    twin_impl = wino_impl_hooks(wino, default_impl(), conv=conv3x3_wino_rq)
+    kernel_impl = wino_impl_hooks(wino)
+    twin_impl = wino_impl_hooks(wino, conv=conv3x3_wino_rq)
     with torch.inference_mode():
         grid = int8_forward(q, images, S=S, impl=kernel_impl)
         twin_grid = int8_forward(q, images, S=S, impl=twin_impl)
-        default_grid = int8_forward(q, images, S=S, impl=default_impl())
+        default_grid = int8_forward(q, images, S=S)
     thr = float(decode_predictions(grid, S, B, C, float("-inf")).scores.float().median())
 
-    _zero_wino_counts()
+    _zero_counts(WINO_ENGINE_ENTRIES)
     out = engine.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
     torch.cuda.synchronize()
-    launches = _wino_counts()
-    if launches[:3] != (1, 42, 16) or launches[3] < 1:
-        raise AssertionError(f"one wino forward must launch stem / int8 conv / wino 1 / 42 / 16 "
-                             f"(and NMS), got {launches}")
+    launches = _counts(WINO_ENGINE_ENTRIES)
+    if launches[:4] != (1, 42, 16, 16) or launches[4] < 1:
+        raise AssertionError(f"one wino forward must launch stem / int8 conv / wino tap pass / "
+                             f"wino tap GEMM 1 / 42 / 16 / 16 (and NMS), got {launches}")
     if not torch.equal(grid, twin_grid):
         raise AssertionError(f"wino grid differs from the twin path's by up to "
                              f"{float((grid - twin_grid).abs().max())}")
@@ -2322,7 +2322,8 @@ def phase_wino_slice(model):
     corr = float(np.corrcoef(grid.double().cpu().numpy().ravel(),
                              default_grid.double().cpu().numpy().ravel())[0, 1])
     log(f"[18] wino slice, batch {SLICE_BATCH}, threshold {thr:.6g} (median score): launches stem "
-        f"{launches[0]}, int8 conv {launches[1]}, wino {launches[2]}, NMS {launches[3]}; "
+        f"{launches[0]}, int8 conv {launches[1]}, wino tap pass {launches[2]}, wino tap GEMM "
+        f"{launches[3]}, NMS {launches[4]}; "
         f"{int(out.valid.sum())} kept; grid == the twin path's bit for bit, keep masks equal; "
         f"grid vs the default int8 engine's: correlation {corr:.6f}, max |diff| "
         f"{float((grid - default_grid).abs().max()):.4g} (max |default| "
@@ -2335,16 +2336,16 @@ def phase_wino_slice(model):
         engine.save_engine(tmp / "wino.npz")
         loaded = YOLOInference(model, dev, image_size=SIZE, optimize="int8",
                                engine_artifact=str(tmp / "wino.npz"))
-        _zero_wino_counts()
+        _zero_counts(WINO_ENGINE_ENTRIES)
         again = loaded.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
         torch.cuda.synchronize()
-        reloaded = _wino_counts()
-        if wino_points_of(loaded._int8_state["q"]) != wino or reloaded[:3] != (1, 42, 16):
+        reloaded = _counts(WINO_ENGINE_ENTRIES)
+        if wino_points_of(loaded._int8_state["q"]) != wino or reloaded[:4] != (1, 42, 16, 16):
             raise AssertionError(f"the reloaded wino engine lost its hooks: launches {reloaded}")
         if not all(torch.equal(a, b) for a, b in zip(again, out)):
             raise AssertionError("the reloaded wino engine's detections differ")
         log(f"[18] save_engine -> {(tmp / 'wino.npz').stat().st_size / 1e6:.1f} MB; a fresh "
-            f"engine from it reinstalls the 16 hooks (launches {reloaded[:3]}) and gives "
+            f"engine from it reinstalls the 16 hooks (launches {reloaded[:4]}) and gives "
             f"identical detections")
         del loaded
 
@@ -2356,16 +2357,16 @@ def phase_wino_slice(model):
         for k in range(4):
             Image.fromarray(r.integers(0, 256, size=(375, 500, 3), dtype=np.uint8)).save(
                 img_dir / f"image{k}.jpg")
-        before = _wino_counts()
+        before = _counts(WINO_ENGINE_ENTRIES)
         predict.main(["--checkpoint", str(ckpt), "--image-dir", str(img_dir), "--device", "cuda",
                       "--conf-threshold=0.99", "--output", str(tmp / "out"), "--int8",
                       "--engine", str(tmp / "wino.npz")])
-        grew = [a - b for a, b in zip(_wino_counts(), before)]
+        grew = [a - b for a, b in zip(_counts(WINO_ENGINE_ENTRIES), before)]
         written = sorted(p.name for p in (tmp / "out").iterdir())
-        if written != [f"image{k}_pred.jpg" for k in range(4)] or grew[:3] != [1, 42, 16]:
+        if written != [f"image{k}_pred.jpg" for k in range(4)] or grew[:4] != [1, 42, 16, 16]:
             raise AssertionError(f"predict --engine <wino>: wrote {written}, launches {grew}")
         log(f"[18] python -m yolo_tpu_torch.predict --int8 --engine <wino artifact>: wrote 4 "
-            f"images, launches stem/conv/wino/NMS {grew}")
+            f"images, launches stem/conv/wino tap pass/wino tap GEMM/NMS {grew}")
     del engine
     return q, thr, launches
 
@@ -2374,14 +2375,14 @@ def phase_wino_slice(model):
 def phase_wino_timing(q, thr: float, card: str) -> None:
     import torch
 
-    from yolo_tpu_torch.serving.engine import default_impl, make_int8_engine_fn
+    from yolo_tpu_torch.serving.engine import make_int8_engine_fn
     from yolo_tpu_torch.serving.winograd import HEAD_POINTS, valid_points, wino_impl_hooks
 
-    fns = {"default": make_int8_engine_fn(S, B, C, impl=default_impl()),
+    fns = {"default": make_int8_engine_fn(S, B, C),
            "wino(all 16)": make_int8_engine_fn(S, B, C, impl=wino_impl_hooks(
-               valid_points((3, 4, 6, 3)), default_impl())),
+               valid_points((3, 4, 6, 3)))),
            "wino(head_conv1,3,4)": make_int8_engine_fn(S, B, C, impl=wino_impl_hooks(
-               HEAD_POINTS, default_impl()))}
+               HEAD_POINTS))}
     order = list(fns) + list(reversed(fns))
     r = np.random.default_rng(59)
     for batch in (1, 16, 64, 256):
@@ -2416,15 +2417,17 @@ def phase_wino_timing(q, thr: float, card: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 20
-def _harness(module, phase: int) -> tuple:
+def _harness(module, phase: int, entry: str) -> tuple:
     """(results, launches) of the harness's entry point at its defaults
-    (``python -m <module>``), its kernel's count zeroed just before."""
-    module.LAUNCHES = 0
+    (``python -m <module>``), its kernel's C entry point ``entry`` zeroed
+    just before."""
+    _zero_counts((entry,))
     log(f"[{phase}] python -m {module.__name__}")
     res = module.main([])
-    if module.LAUNCHES < 1:
-        raise AssertionError(f"{module.__name__} launched its kernel {module.LAUNCHES} times")
-    return res, module.LAUNCHES
+    (launches,) = _counts((entry,))
+    if launches < 1:
+        raise AssertionError(f"{module.__name__} launched its kernel {launches} times")
+    return res, launches
 
 
 def phase_adam(card: str) -> dict:
@@ -2450,7 +2453,7 @@ def phase_adam(card: str) -> dict:
     err = om.check_vs_torch_adam(device="cuda")
     log(f"[20] {card}: adam kernel == twin bit for bit at (512, 256) and ({om.ROWS}, "
         f"{om.COLS}); vs torch.optim.Adam + clip_grad_norm_ step 8: max |dp| {err:.3e}")
-    res, out["launches"] = _harness(om, 20)
+    res, out["launches"] = _harness(om, 20, "yolo_adam_update")
     flops, n_bytes = om.work(om.ROWS, om.COLS)
     out["bound"] = bound(n_bytes, flops, FP32_FLOPS_S)
     out["ms"], out["plain_ms"] = res["cuda_update"], res["plain_update"]
@@ -2514,7 +2517,7 @@ def phase_int8_dot(card: str) -> dict:
             del a, w, m, got, ref
     log(f"[21] {card}: int8 dot (the int8 conv kernel on an (M, 1, 1, K) view) == twin bit "
         f"for bit in all {len(md.CASES)} cases at M = 4096 and {2**20 + 17}")
-    res, out["launches"] = _harness(md, 21)
+    res, out["launches"] = _harness(md, 21, "yolo_int8_conv")
     # Device times of the five cases beside their bounds, with the tile
     # plan() picks and every tile forced (the numbers behind the plan).
     dev = dot_device_ms(g, md.M_DEFAULT)
@@ -2593,7 +2596,7 @@ def phase_conv_stats(card: str) -> dict:
                                           warmup=1)
             del x, w9, y_ref, s_ref, y0, y, s, s2
     torch.cuda.empty_cache()
-    res, out["launches"] = _harness(cb, 22)
+    res, out["launches"] = _harness(cb, 22, "yolo_bf16_conv3x3")
     rows = res["layer3_conv2"]
     out["ms"], out["library_ms"] = rows["cuda_conv"], rows["cudnn_conv"]
     flops, n_bytes = cb.work(128, 28, 256, 256)
@@ -2644,7 +2647,7 @@ def phase_bf16_bottleneck(card: str) -> dict:
         + ", ".join(f"{t[0]}x{t[1]} {v:.4f}" for t, v in tiles.items()) + " ms device")
     del args, packed
     torch.cuda.empty_cache()
-    res, out["launches"] = _harness(fb, 23)
+    res, out["launches"] = _harness(fb, 23, "yolo_bf16_bottleneck")
     out["ms"], out["plain_ms"], out["library_ms"] = res["kernel"], res["plain"], res["cudnn"]
     flops, n_bytes = fb.work(fb.N, fb.H, fb.W, fb.CIN, fb.P)
     out["bound"] = bound(n_bytes, flops, BF16_FLOPS_S)
@@ -2732,14 +2735,13 @@ def phase_eval_parity() -> int:
     batches."""
     import torch
 
-    from yolo_tpu_torch.ops import cuda_nms
 
     batches = eval_batches()
     for nms in (IOU_T, 1.1):
-        cuda_nms.LAUNCHES = 0
+        _zero_counts(("yolo_nms",))
         fast, fast_m = _metric(batches, False, nms, lambda a: torch.from_numpy(a).cuda())
         torch.cuda.synchronize()
-        launches = cuda_nms.LAUNCHES
+        (launches,) = _counts(("yolo_nms",))
         cpu, cpu_m = _metric(batches, False, nms, torch.from_numpy)
         bad = [k for k in cpu if fast.get(k) != cpu[k]]
         n_diff = _chunks_differ(fast_m, cpu_m)
@@ -2748,10 +2750,10 @@ def phase_eval_parity() -> int:
                                  f"{n_diff} array elements differ")
         if launches != len(batches):
             raise AssertionError(f"fast path: {launches} NMS launches for {len(batches)} batches")
-        cuda_nms.LAUNCHES = 0
+        _zero_counts(("yolo_nms_f64",))
         precise, precise_m = _metric(batches, True, nms, lambda a: torch.from_numpy(a).cuda())
         torch.cuda.synchronize()
-        launches64 = cuda_nms.LAUNCHES
+        (launches64,) = _counts(("yolo_nms_f64",))
         cpu64, cpu64_m = _metric(batches, True, nms, torch.from_numpy)
         bad = [k for k in cpu64 if precise.get(k) != cpu64[k]]
         n_diff = _chunks_differ(precise_m, cpu64_m)
@@ -2862,22 +2864,24 @@ def phase_eval_slice() -> dict:
             base = ["--checkpoint", str(ckpt), "--data-root", str(tmp / "voc"), "--year",
                     "2007", "--image-set", "trainval", "--batch-size", str(EVAL_BATCH),
                     "--num-workers", "2", "--device", "cuda"]
-            runs = (("fp32 precise", [], (0, 0, 0, n_batches)),
-                    ("fp32 fast", ["--fast-eval"], (0, 0, 0, n_batches)),
+            # The precise path's NMS is the kernel's float64 instantiation.
+            precise = (*SERVED_ENTRIES[:3], "yolo_nms_f64")
+            runs = (("fp32 precise", [], precise, (0, 0, 0, n_batches)),
+                    ("fp32 fast", ["--fast-eval"], SERVED_ENTRIES, (0, 0, 0, n_batches)),
                     ("int8", ["--int8", "--calib-data", "2012:train", "--fast-eval"],
-                     (n_batches, n_batches, 58 * n_batches, n_batches)),
-                    ("engine", ["--engine", str(artifact), "--fast-eval"],
+                     SERVED_ENTRIES, (n_batches, n_batches, 58 * n_batches, n_batches)),
+                    ("engine", ["--engine", str(artifact), "--fast-eval"], SERVED_ENTRIES,
                      (n_batches, n_batches, 58 * n_batches, n_batches)))
             results = {}
-            for tag, flags, want in runs:
+            for tag, flags, entries, want in runs:
                 report = ckpt.parent / "evaluation_results.txt"
                 report.unlink(missing_ok=True)
-                _zero_counts()
+                _zero_counts(entries)
                 t0 = time.perf_counter()
                 results[tag] = evaluate.main([*base, *flags])
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
-                launches[tag] = _counts()
+                launches[tag] = _counts(entries)
                 if launches[tag] != want:
                     raise AssertionError(f"evaluate {tag}: launches stem/pool/conv/NMS "
                                          f"{launches[tag]}, want {want}")
@@ -2951,11 +2955,13 @@ def phase_accuracy_gate() -> tuple:
     convs = [c[0] for c in engine_convs(1)]
     per_conv = sum(not _chained(name) for name in convs)
     # stem / int8 conv / chain / block / NMS: the default engine and the
-    # chained one, one forward each; one NMS launch a metric pass (3).
+    # chained one, one forward each; one NMS launch a metric pass (3), the
+    # precise metric's float64 instantiation.
     want = (2, len(convs) + per_conv, 3, 0, 3)
-    _zero_chain_counts()
+    entries = (*CHAIN_ENTRIES[:4], "yolo_nms_f64")
+    _zero_counts(entries)
     rc = quant_accuracy.main(["--chain"])
-    counts = _chain_counts()
+    counts = _counts(entries)
     if rc != 0:
         raise AssertionError("quant_accuracy --chain: FAIL")
     if counts != want:
@@ -2994,8 +3000,7 @@ def _serving_engines():
     from yolo_tpu_torch.data.transforms import device_normalize
     from yolo_tpu_torch.inference import YOLOInference
     from yolo_tpu_torch.serving import cuda_bottleneck as cb
-    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
-                                               make_int8_engine_fn)
+    from yolo_tpu_torch.serving.engine import build_int8_predict, make_int8_engine_fn
     from yolo_tpu_torch.serving.graphs import GraphedPredict
     from yolo_tpu_torch.serving.winograd import valid_points
 
@@ -3004,11 +3009,9 @@ def _serving_engines():
     r = np.random.default_rng(43)
     calib = [device_normalize(torch.from_numpy(
         r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(dev)) for _ in range(2)]
-    fn, q = build_int8_predict(model, calib, impl=default_impl())
-    wfn, wq = build_int8_predict(model, calib, impl=default_impl(),
-                                 wino=valid_points((3, 4, 6, 3)))
-    chain = make_int8_engine_fn(S, B, C, impl={
-        **default_impl(), **{f"layer{i}": cb.chain_int8 for i in range(1, 5)}})
+    fn, q = build_int8_predict(model, calib)
+    wfn, wq = build_int8_predict(model, calib, wino=valid_points((3, 4, 6, 3)))
+    chain = make_int8_engine_fn(S, B, C, impl={f"layer{i}": cb.chain_int8 for i in range(1, 5)})
     exact = YOLOInference(model, dev, image_size=SIZE)
 
     def int8(f, qq):
@@ -3599,9 +3602,9 @@ def phase_yolov1_slice(card: str) -> int:
     from yolo_tpu_torch import evaluate, predict
     from yolo_tpu_torch.data.transforms import device_normalize
     from yolo_tpu_torch.inference import YOLOInference
-    from yolo_tpu_torch.ops import cuda_nms
     from yolo_tpu_torch.ops.decode import Detections, decode_predictions, threshold_mask
     from yolo_tpu_torch.ops.nms import batched_nms
+    from yolo_tpu_torch.utils import kernels
 
     dev = torch.device("cuda")
     engine = YOLOInference(_yolov1_model(), dev, image_size=SIZE)
@@ -3628,10 +3631,10 @@ def phase_yolov1_slice(card: str) -> int:
 
     thr = float(all_scores.float().median())
     thr_cli = float(all_scores.float().quantile(0.9))
-    cuda_nms.LAUNCHES = 0
+    _zero_counts(("yolo_nms",))
     out = engine.predict_batch_arrays(images, conf_threshold=thr, nms_threshold=IOU_T)
     torch.cuda.synchronize()
-    launches = cuda_nms.LAUNCHES
+    launches = kernels.LAUNCHES["yolo_nms"]
     if launches != 1:
         raise AssertionError(f"24-conv batch of {SLICE_BATCH}: {launches} NMS launches, not 1")
     host = Detections(*(t.cpu() for t in out))
@@ -3654,28 +3657,28 @@ def phase_yolov1_slice(card: str) -> int:
         for k in range(3):
             Image.fromarray(r.integers(0, 256, size=(375, 500, 3), dtype=np.uint8)).save(
                 img_dir / f"image{k}.jpg")
-        cuda_nms.LAUNCHES = 0
+        _zero_counts(("yolo_nms",))
         predict.main(["--checkpoint", str(ckpt), "--image-dir", str(img_dir), "--output",
                       str(out_dir), "--backbone", "yolov1", "--device", "cuda",
                       f"--conf-threshold={thr_cli}"])
         written = sorted(p.name for p in out_dir.iterdir())
-        if written != [f"image{k}_pred.jpg" for k in range(3)] or cuda_nms.LAUNCHES < 1:
+        if written != [f"image{k}_pred.jpg" for k in range(3)] or kernels.LAUNCHES["yolo_nms"] < 1:
             raise AssertionError(f"predict --backbone yolov1 wrote {written}, "
-                                 f"{cuda_nms.LAUNCHES} NMS launches")
+                                 f"{kernels.LAUNCHES['yolo_nms']} NMS launches")
         log(f"[29] predict --backbone yolov1: wrote {written}; NMS launches "
-            f"{cuda_nms.LAUNCHES}")
+            f"{kernels.LAUNCHES['yolo_nms']}")
         _write_voc(tmp / "voc")
-        cuda_nms.LAUNCHES = 0
+        _zero_counts(("yolo_nms",))
         res = evaluate.main(["--checkpoint", str(ckpt), "--data-root", str(tmp / "voc"),
                              "--year", "2007", "--image-set", "trainval", "--batch-size",
                              "2", "--num-workers", "2", "--device", "cuda", "--backbone",
                              "yolov1", "--fast-eval"])
         if len(res) != 77 or not all(np.isfinite(v) for v in res.values()) \
-                or cuda_nms.LAUNCHES != 2:
+                or kernels.LAUNCHES["yolo_nms"] != 2:
             raise AssertionError(f"evaluate --backbone yolov1: {len(res)} keys, NMS launches "
-                                 f"{cuda_nms.LAUNCHES} (want 77 keys, 2 launches)")
+                                 f"{kernels.LAUNCHES['yolo_nms']} (want 77 keys, 2 launches)")
         log(f"[29] evaluate --backbone yolov1 (4 images, batches of 2): 77 finite keys, "
-            f"NMS launches {cuda_nms.LAUNCHES}")
+            f"NMS launches {kernels.LAUNCHES['yolo_nms']}")
 
     r = np.random.default_rng(47)
     for batch in (1, SLICE_BATCH, 64):
@@ -3774,7 +3777,6 @@ def _remat_step(fused_bn, remat, images, targets, mask) -> tuple:
     import torch
 
     from yolo_tpu_torch.models import create_model
-    from yolo_tpu_torch.ops import fused_bn as fb
 
     dev = torch.device("cuda")
     model = create_model("resnet", C, S, B, device=dev, image_size=SIZE, fused_bn=fused_bn,
@@ -3782,11 +3784,10 @@ def _remat_step(fused_bn, remat, images, targets, mask) -> tuple:
     model = model.to(memory_format=torch.channels_last)
     model.head.fc_layers[3].fixed_mask = mask
     trainer = _trainer(model)
-    for k in fb.LAUNCHES:
-        fb.LAUNCHES[k] = 0
+    _zero_counts(BN_ENTRIES.values())
     parts = trainer.train_step(images, targets)
     torch.cuda.synchronize()
-    launches = dict(fb.LAUNCHES)
+    launches = _bn_launches()
     grads = {k: p.grad for k, p in model.named_parameters()}
     buffers = {k: v for k, v in model.state_dict().items()
                if "running_" in k or "num_batches" in k}
@@ -3949,11 +3950,11 @@ def phase_quantized(card: str) -> int:
             + ", ".join(str(k) for k in seen))
         del seen
 
-        cuda_int8.LAUNCHES = 0
+        _zero_counts(("yolo_int8_conv",))
         with torch.inference_mode():
             yq = q(x)
         torch.cuda.synchronize()
-        launches = cuda_int8.LAUNCHES
+        (launches,) = _counts(("yolo_int8_conv",))
         if launches != want:
             raise AssertionError(f"quantized {backbone} forward at batch {SLICE_BATCH}: "
                                  f"{launches} int8 conv launches, not {want}")
@@ -4073,8 +4074,8 @@ def phase_dynq(card: str) -> dict:
     if not torch.equal(grid_k, grid_t):
         raise AssertionError("quantized 24-conv model: grid with the dynq kernels != with the "
                              f"twin (max diff {float((grid_k - grid_t).abs().max())})")
-    want = {"dynq": 24, "conv_int8": 24, "nms": 1}
-    if per_batch != want or per_batch_t != {"conv_int8": 24, "nms": 1}:
+    want = {"yolo_dynq": 24, "yolo_int8_conv": 24, "yolo_nms": 1}
+    if per_batch != want or per_batch_t != {"yolo_int8_conv": 24, "yolo_nms": 1}:
         raise AssertionError(f"quantized 24-conv GraphedPredict: {per_batch} launches a replay "
                              f"(not {want}); with the twin {per_batch_t}")
     k2_ms = cuda_ms(lambda: graphed(images), iters=10, warmup=2)
@@ -4085,7 +4086,7 @@ def phase_dynq(card: str) -> dict:
         f"{DYNQ_BATCH * 1e3 / t_ms:.0f} img/s)")
     del model, engine, graphed, grid_k, grid_t, x
     torch.cuda.empty_cache()
-    return {"launches": per_batch["dynq"], "ms": k_sum, "plain_ms": p_sum,
+    return {"launches": per_batch["yolo_dynq"], "ms": k_sum, "plain_ms": p_sum,
             "bound": (b_sum, "bytes")}
 
 
@@ -4265,11 +4266,10 @@ def _task_dp_two(mesh, device) -> dict:
 
     images, targets, mask = _par_inputs()
     trainer = _par_trainer(_model("full"), mesh)
-    for k in fb.LAUNCHES:
-        fb.LAUNCHES[k] = 0
+    _zero_counts(BN_ENTRIES.values())
     fb.ALL_REDUCES = 0
     parts, ms = _step(trainer, images, targets, mask)
-    out = {"parts": parts, "ms": ms, "launches": dict(fb.LAUNCHES),
+    out = {"parts": parts, "ms": ms, "launches": _bn_launches(),
            "all_reduces": fb.ALL_REDUCES,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     grads = {k: p.grad.clone() for k, p in trainer.model.named_parameters()}
@@ -4444,26 +4444,23 @@ def _task_serve_eval(mesh, device) -> dict:
     from yolo_tpu_torch.data import VOC_CLASSES, encode_target
     from yolo_tpu_torch.data.transforms import device_normalize
     from yolo_tpu_torch.metrics import evaluate_model
-    from yolo_tpu_torch.ops import cuda_nms
     from yolo_tpu_torch.ops.decode import decode_predictions
     from yolo_tpu_torch.parallel import batch_slice
-    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
-                                               gather_detections, int8_forward,
-                                               make_sharded_int8_engine_fn)
+    from yolo_tpu_torch.serving.engine import (build_int8_predict, gather_detections,
+                                               int8_forward, make_sharded_int8_engine_fn)
 
     model = _int8_model()
     r = np.random.default_rng(43)
     calib = [device_normalize(torch.from_numpy(
         r.integers(0, 256, size=(8, SIZE, SIZE, 3), dtype=np.uint8)).to(device))
         for _ in range(2)]
-    impl = default_impl()
-    single, q = build_int8_predict(model, calib, impl=impl)
+    single, q = build_int8_predict(model, calib)
     images = torch.from_numpy(np.random.default_rng(7).integers(
         0, 256, size=(2 * SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(device)
     with torch.inference_mode():
-        grid = int8_forward(q, images[:SLICE_BATCH], S=S, impl=impl)
+        grid = int8_forward(q, images[:SLICE_BATCH], S=S)
     thr = float(decode_predictions(grid, S, B, C, float("-inf")).scores.float().median())
-    sharded = make_sharded_int8_engine_fn(mesh, S, B, C, impl=impl)
+    sharded = make_sharded_int8_engine_fn(mesh, S, B, C)
     _zero_counts()
     dets = sharded(q, images, thr, IOU_T)
     torch.cuda.synchronize()
@@ -4484,10 +4481,10 @@ def _task_serve_eval(mesh, device) -> dict:
     rows = np.random.default_rng(47)
     batches = [(rows.integers(0, 256, size=(2 * SLICE_BATCH, SIZE, SIZE, 3), dtype=np.uint8),
                 np.repeat(dog[None], 2 * SLICE_BATCH, axis=0)) for _ in range(2)]
-    cuda_nms.LAUNCHES = 0
+    _zero_counts(("yolo_nms",))
     keys = evaluate_model(model, _Batches(batches, 2 * SLICE_BATCH), verbose=False,
                           device=device, precise=False, mesh=mesh)
-    eval_nms = cuda_nms.LAUNCHES
+    (eval_nms,) = _counts(("yolo_nms",))
     out = {"launches": launches, "equal": equal, "kept": int(dets.valid.sum()),
            "gathered": tuple(gathered.valid.shape), "serve_ms": serve_ms, "keys": keys,
            "eval_nms": eval_nms, "thr": thr}
@@ -4926,7 +4923,7 @@ def main() -> None:
     # The Winograd conv (tap pass + tap GEMM, device time) at head.conv1
     # (14x14, 2048 -> 1024, leaky), batch 16, launches (convs) per served
     # batch of the wino engine; no one PyTorch call computes it. Its ablation
-    # modes at the same geometry, launches from the ablation's own run.
+    # modes at the same geometry, each with its own launches in phase 17.
     k_ms, p_ms, b_ms, b_by = wk["conv"]["head.conv1"][:4]
     record["kernels"].append({
         "name": "int8_wino",
@@ -4948,7 +4945,7 @@ def main() -> None:
             "route": "cuda",
             "source": "yolo_tpu_torch/csrc/int8_wino.cu",
             "replaces": "experiments/wino_ablate.py:57",
-            "launches": wk["ablation_launches"][mode],
+            "launches": wk["mode_launches"][mode],
             "max_abs_err": wk["mode_err"],
             "ms": k_ms,
             "plain_ms": p_ms,

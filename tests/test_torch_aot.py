@@ -101,8 +101,7 @@ def aot(tmp_path_factory):
     """Both packages' AOT artifacts of one engine at batch 4, uint8 wire,
     with a threshold that keeps every score and IoU off its decision edge."""
     calib = np.random.default_rng(1).normal(size=(4, SIZE, SIZE, 3)).astype(np.float32)
-    live, q = engine.build_int8_predict(_small_model(), [torch.from_numpy(calib)],
-                                        impl=engine.default_impl())
+    live, q = engine.build_int8_predict(_small_model(), [torch.from_numpy(calib)])
     qj = _jax_tree(q)
     jfn = _JaxEngine(jengine.make_int8_engine_fn(7, 2, 20), qj)
     images, thr = comparable_batch(jfn, 30, lambda seed: np.random.default_rng(seed).integers(
@@ -222,8 +221,11 @@ def test_op_passes_opcheck(case):
 
 
 def test_default_and_aot_impl_carry_the_stem_front_and_max_pool():
-    live, aot = engine.default_impl(), library.aot_impl()
-    assert set(live) == set(aot) == {"stem_front", "max_pool"}
+    """``aot_impl`` overrides exactly the two stages ``int8_forward`` runs
+    through the kernel wrappers by default, with the custom ops."""
+    aot = library.aot_impl()
+    assert set(aot) == {"stem_front", "max_pool"}
+    assert aot["stem_front"] == torch.ops.yolo_tpu_torch.quant_s2d
     assert aot["max_pool"] == torch.ops.yolo_tpu_torch.max_pool_int8
 
 

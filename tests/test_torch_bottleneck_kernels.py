@@ -26,6 +26,7 @@ from yolo_tpu.serving.engine import _block_xla
 from yolo_tpu.serving.pallas_int8 import block_pallas, chain_pallas
 from yolo_tpu_torch.serving import cuda_bottleneck as cb
 from yolo_tpu_torch.serving.engine import to_device
+from yolo_tpu_torch.utils import kernels
 
 from test_torch_cuda import random_qblock
 
@@ -92,10 +93,10 @@ def test_chain_twin_matches_pallas(W, ds):
 def test_wrappers_take_the_twins_on_the_cpu():
     qbs = [to_device(random_qblock(30 + b, 16, 16, 8), "cpu") for b in range(2)]
     x = torch.from_numpy(_x(5, (1, 9, 7, 16)))
-    before = dict(cb.LAUNCHES)
+    before = kernels.LAUNCHES["yolo_int8_bottleneck"], kernels.LAUNCHES["yolo_int8_chain"]
     assert torch.equal(cb.block_int8(x, qbs[0]), cb.block_int8_reference(x, qbs[0]))
     assert torch.equal(cb.chain_int8(x, qbs), cb.chain_int8_reference(x, qbs))
-    assert cb.LAUNCHES == before
+    assert (kernels.LAUNCHES["yolo_int8_bottleneck"], kernels.LAUNCHES["yolo_int8_chain"]) == before
 
 
 def test_unsupported_shapes_raise():

@@ -13,6 +13,8 @@ them. Run them on the GPU machine with
 covers the same ground at the slices' shapes.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ import torch
 from yolo_tpu_torch.experiments import bf16_ulp
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.decode import Detections
+from yolo_tpu_torch.utils import kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -52,10 +55,10 @@ def _random(seed, n, K, ties):
 def test_kernel_equals_plain_twin(device, K, ties, eps):
     cpu = _random(K, 37, K, ties)
     ref = cuda_nms.nms(cpu, 0.45, eps=eps).valid
-    before = cuda_nms.LAUNCHES
+    before = kernels.LAUNCHES["yolo_nms"]
     got = cuda_nms.nms(Detections(*(t.to(device) for t in cpu)), 0.45, eps=eps).valid
     torch.cuda.synchronize()
-    assert cuda_nms.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_nms"] == before + 1
     assert torch.equal(got.cpu(), ref)
 
 
@@ -71,10 +74,10 @@ def test_float64_kernel_equals_plain_twin(device, K, ties, eps):
     threshold and eps as float64 (0.4 is not float32's 0.4)."""
     cpu = _float64(_random(K + 1, 37, K, ties))
     ref = cuda_nms.nms(cpu, 0.4, eps=eps).valid
-    before = cuda_nms.LAUNCHES
+    before = kernels.LAUNCHES["yolo_nms_f64"]
     got = cuda_nms.nms(Detections(*(t.to(device) for t in cpu)), 0.4, eps=eps).valid
     torch.cuda.synchronize()
-    assert cuda_nms.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_nms_f64"] == before + 1
     assert torch.equal(got.cpu(), ref)
 
 
@@ -149,9 +152,10 @@ def _graph_equals_eager(fn):
 @pytest.mark.parametrize("K", [98, 1024])
 def test_kernel_replays_in_a_cuda_graph(device, K):
     gpu = Detections(*(t.to(device) for t in _random(K + 1, 16, K, True)))
-    before = cuda_nms.LAUNCHES
+    before = kernels.LAUNCHES["yolo_nms"]
     eager, replayed = _graph_equals_eager(lambda: cuda_nms.nms(gpu, 0.45).valid)
-    assert cuda_nms.LAUNCHES == before + 3  # eager, warm-up, capture; a replay is no call
+    # eager, warm-up, capture; a replay is no call
+    assert kernels.LAUNCHES["yolo_nms"] == before + 3
     assert torch.equal(eager, replayed)
 
 
@@ -193,14 +197,15 @@ def test_fused_bn_kernels_equal_plain_twins(device, shape, dtype, relu, res):
     x, rr, g, mul, add, r = _bn_inputs(sum(shape), shape, dtype, device)
     assert x.is_contiguous(memory_format=torch.channels_last)
     residual = rr if res else None
-    before = dict(fb.LAUNCHES)
+    names = ("yolo_bn_stats", "yolo_bn_normalize", "yolo_bn_bwd_reduce", "yolo_bn_bwd_dx")
+    before = Counter(kernels.LAUNCHES)
     relayouts = fb.RELAYOUTS
     mean, var = fb.bn_stats(x)
     out = fb.bn_normalize(x, mul, add, residual, relu)
     s1, s2 = fb.bn_bwd_reduce(g, out, x, mean, r, relu)
     dx, dres = fb.bn_bwd_dx(g, out, x, mul, add, r, relu, res)
     torch.cuda.synchronize()
-    assert all(fb.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert kernels.LAUNCHES - before == dict.fromkeys(names, 1)
     assert fb.RELAYOUTS == relayouts
     assert out.is_contiguous(memory_format=torch.channels_last)
 
@@ -294,10 +299,10 @@ def test_quant_s2d_kernel_equals_plain_twin(device, shape, dtype):
         images = r.normal(0, 1.5, size=(n, h, w, 3)).astype(np.float32)
     cpu = torch.from_numpy(images)
     s_img = torch.tensor(0.0173, dtype=torch.float32)
-    before = cuda_stem.LAUNCHES
+    before = kernels.LAUNCHES["yolo_quant_s2d"]
     got = cuda_stem.quant_s2d(cpu.to(device), s_img.to(device))
     torch.cuda.synchronize()
-    assert cuda_stem.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_quant_s2d"] == before + 1
     ref = cuda_stem.quant_s2d_reference(cpu, s_img)
     assert torch.equal(got.cpu(), ref)
     # ... and the twin on the card equals the twin on the CPU.
@@ -337,9 +342,9 @@ def test_quant_s2d_kernel_replays_in_a_cuda_graph(device, dtype):
 
     images = _stem_images(7, (4, 448, 448), dtype).to(device)
     s_img = torch.tensor(0.0173, dtype=torch.float32, device=device)
-    before = cuda_stem.LAUNCHES
+    before = kernels.LAUNCHES["yolo_quant_s2d"]
     eager, replayed = _graph_equals_eager(lambda: cuda_stem.quant_s2d(images, s_img))
-    assert cuda_stem.LAUNCHES == before + 3
+    assert kernels.LAUNCHES["yolo_quant_s2d"] == before + 3
     assert torch.equal(eager, replayed)
 
 
@@ -394,11 +399,11 @@ def _check_conv_modes(device, case, seed):
     for mode in cuda_int8.MODES:
         extra = dict(res=res, r=r) if mode == "residual" else {}
         ref = cuda_int8.conv_int8_reference(x, wq, m, t, stride, pad, mode, **extra)
-        before = cuda_int8.LAUNCHES
+        before = kernels.LAUNCHES["yolo_int8_conv"]
         got = cuda_int8.conv_int8(gpu(x), gpu(wq), gpu(m), gpu(t), stride, pad, mode,
                                   wk=wk, **{k: gpu(v) for k, v in extra.items()})
         torch.cuda.synchronize()
-        assert cuda_int8.LAUNCHES == before + 1
+        assert kernels.LAUNCHES["yolo_int8_conv"] == before + 1
         assert got.dtype == ref.dtype and got.shape == ref.shape, mode
         assert torch.equal(got.cpu(), ref), mode
 
@@ -445,9 +450,7 @@ def test_int8_engine_on_the_card_equals_the_cpu_engine(device):
     q-params on the CPU (the twins): every int8 activation is exact, so the
     grids differ only by the float32 FC sums' order."""
     from yolo_tpu_torch.models import create_model
-    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem
-    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
-                                               int8_forward, to_device)
+    from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward, to_device
 
     model = create_model("resnet", 20, 7, 2, device="cpu", stage_sizes=(1, 1, 1, 1),
                          image_size=64, generator=torch.Generator().manual_seed(0))
@@ -455,12 +458,12 @@ def test_int8_engine_on_the_card_equals_the_cpu_engine(device):
     calib = torch.from_numpy(r.normal(size=(4, 64, 64, 3)).astype(np.float32))
     _, q = build_int8_predict(model, [calib])
     images = torch.from_numpy(r.integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8))
-    ref = int8_forward(q, images, impl=default_impl())
-    stem0, pool0, conv0 = cuda_stem.LAUNCHES, cuda_pool.LAUNCHES, cuda_int8.LAUNCHES
-    got = int8_forward(to_device(q, device), images.to(device), impl=default_impl())
+    ref = int8_forward(q, images)
+    before = Counter(kernels.LAUNCHES)
+    got = int8_forward(to_device(q, device), images.to(device))
     torch.cuda.synchronize()
-    assert cuda_stem.LAUNCHES - stem0 == 1 and cuda_pool.LAUNCHES - pool0 == 1
-    assert cuda_int8.LAUNCHES - conv0 == 1 + 4 * 3 + 4 + 4 + 1
+    assert kernels.LAUNCHES - before == {"yolo_quant_s2d": 1, "yolo_max_pool_int8": 1,
+                                         "yolo_int8_conv": 1 + 4 * 3 + 4 + 4 + 1}
     tol = 1e-5 * float(ref.abs().max()) + 1e-6
     assert float((got.cpu() - ref).abs().max()) <= tol
 
@@ -527,10 +530,10 @@ def _dynq_on_card_equals_twin(x):
     from yolo_tpu_torch.serving import cuda_dynq
 
     c127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)
-    before = cuda_dynq.LAUNCHES
+    before = kernels.LAUNCHES["yolo_dynq"]
     xq, s_x = cuda_dynq.quantize(x, c127)
     torch.cuda.synchronize()
-    assert cuda_dynq.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_dynq"] == before + 1
     ref_q, ref_s = cuda_dynq.quantize_reference(x, c127)
     n, c, h, w = x.shape
     assert xq.shape == (n, h, w, c) and xq.dtype == torch.int8 and xq.is_contiguous()
@@ -584,7 +587,7 @@ def test_dynq_kernel_replays_in_a_cuda_graph_on_new_data(device):
 
     static = batch(0, 1.0)
     c127 = torch.full((), 127.0, dtype=torch.float32, device=device)
-    before = cuda_dynq.LAUNCHES
+    before = kernels.LAUNCHES["yolo_dynq"]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -599,7 +602,7 @@ def test_dynq_kernel_replays_in_a_cuda_graph_on_new_data(device):
         torch.cuda.synchronize()
         ref_q, ref_s = cuda_dynq.quantize_reference(static.permute(0, 3, 1, 2), c127)
         assert torch.equal(s_x, ref_s) and torch.equal(xq, ref_q)
-    assert cuda_dynq.LAUNCHES == before + 2  # warm-up, capture; a replay is no call
+    assert kernels.LAUNCHES["yolo_dynq"] == before + 2  # warm-up, capture; a replay is no call
 
 
 def test_dynq_kernel_rejects_what_it_does_not_take(device):
@@ -651,10 +654,10 @@ def test_max_pool_kernel_equals_plain_twin(device, case):
     from yolo_tpu_torch.serving import cuda_pool
 
     x = pool_input(case, device)
-    before = cuda_pool.LAUNCHES
+    before = kernels.LAUNCHES["yolo_max_pool_int8"]
     got = cuda_pool.max_pool_int8(x)
     torch.cuda.synchronize()
-    assert cuda_pool.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_max_pool_int8"] == before + 1
     want = cuda_pool.max_pool_int8_reference(x)
     n, h, w, c = x.shape
     assert got.shape == (n, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c) == want.shape
@@ -674,7 +677,7 @@ def test_max_pool_kernel_replays_in_a_cuda_graph_on_new_data(device):
     g = torch.Generator(device=device).manual_seed(5)
     static = torch.randint(-128, 128, (4, 56, 56, 64), generator=g, device=device,
                            dtype=torch.int8)
-    before = cuda_pool.LAUNCHES
+    before = kernels.LAUNCHES["yolo_max_pool_int8"]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -690,7 +693,8 @@ def test_max_pool_kernel_replays_in_a_cuda_graph_on_new_data(device):
         torch.cuda.synchronize()
         assert torch.equal(out, cuda_pool.max_pool_int8(static))
         assert torch.equal(out, cuda_pool.max_pool_int8_reference(static))
-    assert cuda_pool.LAUNCHES == before + 4  # warm-up, capture, two eager checks
+    # warm-up, capture, two eager checks
+    assert kernels.LAUNCHES["yolo_max_pool_int8"] == before + 4
 
 
 def test_max_pool_kernel_rejects_what_it_does_not_take(device):
@@ -762,10 +766,10 @@ def test_bottleneck_kernel_equals_plain_twin(device, case):
     qb = random_qblock(sum(case), c, c, p)
     x = _x(1, (n, h, w, c))
     ref = cb.block_int8_reference(x, _on(qb, "cpu"))
-    before = cb.LAUNCHES["bottleneck"]
+    before = kernels.LAUNCHES["yolo_int8_bottleneck"]
     got = cb.block_int8(x.to(device), _on(qb, device))
     torch.cuda.synchronize()
-    assert cb.LAUNCHES["bottleneck"] == before + 1
+    assert kernels.LAUNCHES["yolo_int8_bottleneck"] == before + 1
     assert torch.equal(got.cpu(), ref)
 
 
@@ -787,10 +791,10 @@ def test_chain_kernel_equals_plain_twin(device, case):
            for b in range(nb)]
     x = _x(2, (n, h, w, cin))
     ref = cb.chain_int8_reference(x, [_on(qb, "cpu") for qb in qbs])
-    before = dict(cb.LAUNCHES)
+    before = Counter(kernels.LAUNCHES)
     got = cb.chain_int8(x.to(device), [_on(qb, device) for qb in qbs])
     torch.cuda.synchronize()
-    assert cb.LAUNCHES == {**before, "chain": before["chain"] + 1}
+    assert kernels.LAUNCHES - before == {"yolo_int8_chain": 1}
     tiles = cb.plan(n, h, w, cin, c, p, ds=ds).tiles
     assert 0 < cb.LAST_GRID <= tiles
     assert torch.equal(got.cpu(), ref)
@@ -844,8 +848,7 @@ def test_int8_engine_with_stage_chains_on_the_card(device):
     and launches 1 chain per stage and 1 + 3 * 4 + 4 + 1 int8 convs."""
     from yolo_tpu_torch.models import create_model
     from yolo_tpu_torch.serving import cuda_bottleneck as cb
-    from yolo_tpu_torch.serving import cuda_int8
-    from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl, int8_forward
+    from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward
 
     model = create_model("resnet", 20, 7, 2, device=device, stage_sizes=(2, 2, 2, 2),
                          image_size=64, generator=torch.Generator(device=device).manual_seed(0))
@@ -853,13 +856,14 @@ def test_int8_engine_with_stage_chains_on_the_card(device):
     calib = torch.from_numpy(r.normal(size=(4, 64, 64, 3)).astype(np.float32)).to(device)
     _, q = build_int8_predict(model, [calib])
     images = torch.from_numpy(r.integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8)).to(device)
-    ref = int8_forward(q, images, impl=default_impl())
-    impl = {**default_impl(), **{f"layer{i}": cb.chain_int8 for i in range(1, 5)}}
-    chains, convs = cb.LAUNCHES["chain"], cuda_int8.LAUNCHES
+    ref = int8_forward(q, images)
+    impl = {f"layer{i}": cb.chain_int8 for i in range(1, 5)}
+    before = Counter(kernels.LAUNCHES)
     got = int8_forward(q, images, impl=impl)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES["chain"] - chains == 4
-    assert cuda_int8.LAUNCHES - convs == 1 + 3 * 4 + 4 + 1
+    grew = kernels.LAUNCHES - before
+    assert grew["yolo_int8_chain"] == 4
+    assert grew["yolo_int8_conv"] == 1 + 3 * 4 + 4 + 1
     assert torch.equal(got, ref)
 
 
@@ -892,10 +896,10 @@ def test_wino_kernel_equals_plain_twin(device, shape, ck, leaky):
     qw = random_qwino(sum(shape) + c, c, k)
     x = _x(3, (*shape, c))
     ref = cuda_wino.conv3x3_wino_reference(x, {"wino": _on(qw, "cpu")}, leaky)
-    before = dict(cuda_wino.LAUNCHES)
+    before = Counter(kernels.LAUNCHES)
     got = cuda_wino.conv3x3_wino(x.to(device), {"wino": _on(qw, device)}, leaky)
     torch.cuda.synchronize()
-    assert cuda_wino.LAUNCHES == {**before, "full": before["full"] + 1}
+    assert kernels.LAUNCHES - before == dict.fromkeys(cuda_wino.ENTRIES["full"], 1)
     assert got.dtype == torch.int8 and got.shape == ref.shape == (*shape, k)
     assert torch.equal(got.cpu(), ref)
 
@@ -926,10 +930,10 @@ def test_wino_ablation_modes_equal_their_twins(device, mode, shape):
     qw = random_qwino(5, 128, 128)
     x = _x(4, (*shape, 128))
     ref = cuda_wino.wino_ablate(x, _on(qw, "cpu"), mode)
-    before = cuda_wino.LAUNCHES[mode]
+    before = Counter(kernels.LAUNCHES)
     got = cuda_wino.wino_ablate(x.to(device), _on(qw, device), mode)
     torch.cuda.synchronize()
-    assert cuda_wino.LAUNCHES[mode] == before + 1
+    assert kernels.LAUNCHES - before == {name: 1 for name in cuda_wino.ENTRIES[mode]}
     assert torch.equal(got.cpu(), ref)
 
 
@@ -954,10 +958,11 @@ def test_wino_kernel_rejects_what_it_does_not_take(device):
 def test_int8_engine_with_wino_convs_on_the_card(device):
     """A small int8 engine (2 blocks a stage, 64x64) with every Winograd point
     through the kernel equals the same engine with the twin on the card, bit
-    for bit, and launches 8 Winograd convs and 26 int8 convs (34 less the 8)."""
+    for bit, and launches 8 Winograd convs (a tap pass and a tap GEMM each)
+    and 26 int8 convs (34 less the 8)."""
     from yolo_tpu_torch.models import create_model
-    from yolo_tpu_torch.serving import cuda_int8, cuda_wino, winograd
-    from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl, int8_forward
+    from yolo_tpu_torch.serving import winograd
+    from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward
 
     model = create_model("resnet", 20, 7, 2, device=device, stage_sizes=(2, 2, 2, 2),
                          image_size=64, generator=torch.Generator(device=device).manual_seed(0))
@@ -968,12 +973,13 @@ def test_int8_engine_with_wino_convs_on_the_card(device):
     _, q = build_int8_predict(model, [calib], wino=wino)
     images = torch.from_numpy(r.integers(0, 256, size=(3, 64, 64, 3), dtype=np.uint8)).to(device)
     twin = int8_forward(q, images, impl=winograd.wino_impl_hooks(
-        wino, default_impl(), conv=winograd.conv3x3_wino_rq))
-    convs, winos = cuda_int8.LAUNCHES, cuda_wino.LAUNCHES["full"]
-    got = int8_forward(q, images, impl=winograd.wino_impl_hooks(wino, default_impl()))
+        wino, conv=winograd.conv3x3_wino_rq))
+    before = Counter(kernels.LAUNCHES)
+    got = int8_forward(q, images, impl=winograd.wino_impl_hooks(wino))
     torch.cuda.synchronize()
-    assert cuda_wino.LAUNCHES["full"] - winos == 8
-    assert cuda_int8.LAUNCHES - convs == 1 + 3 * 8 + 4 + 4 + 1 - 8
+    grew = kernels.LAUNCHES - before
+    assert grew["yolo_int8_wino_taps"] == grew["yolo_int8_wino_gemm"] == 8
+    assert grew["yolo_int8_conv"] == 1 + 3 * 8 + 4 + 4 + 1 - 8
     assert torch.equal(got, twin)
 
 
@@ -989,10 +995,10 @@ def test_adam_kernel_equals_plain_twin(device, shape):
     v.abs_()
     scalars = om.bias_scalars(0.7, 9, 3e-4, device)
     ref = om.plain_update(p, m, v, g, scalars)
-    before = om.LAUNCHES
+    before = kernels.LAUNCHES["yolo_adam_update"]
     got = om.cuda_update(p, m, v, g, scalars)
     torch.cuda.synchronize()
-    assert om.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_adam_update"] == before + 1
     assert got[0] is p and got[1] is m and got[2] is v  # in place
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
@@ -1017,10 +1023,10 @@ def test_int8_dot_kernel_equals_plain_twin(device, kn, M):
     m = torch.from_numpy((r.uniform(0.5, 1.5, N) * (2e-2 / np.sqrt(K))).astype(np.float32))
     ref = md.int8_dot_reference(a, w, m)
     assert 0 < int((ref.abs() == 127).sum()) < ref.numel()  # both clips and the interior
-    before = md.LAUNCHES
+    before = kernels.LAUNCHES["yolo_int8_conv"]
     got = md.int8_dot(a.to(device), w.to(device), m.to(device))
     torch.cuda.synchronize()
-    assert md.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_int8_conv"] == before + 1
     assert torch.equal(got.cpu(), ref)
 
 
@@ -1043,12 +1049,12 @@ def test_bf16_conv_stats_kernel_equals_plain_twin(device, case):
     x, w9 = x.to(torch.bfloat16), w9.to(device, torch.bfloat16)
     ref, ref_s = cb.conv3x3_bf16_reference(x, w9, stats=True)
     acc = cb.conv3x3_acc_reference(x, w9).double()
-    before = cb.LAUNCHES
+    before = kernels.LAUNCHES["yolo_bf16_conv3x3"]
     y0, _ = cb.conv3x3_bf16(x, w9)
     y, s = cb.conv3x3_bf16(x, w9, stats=True)
     _, s2 = cb.conv3x3_bf16(x, w9, stats=True)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES == before + 3
+    assert kernels.LAUNCHES["yolo_bf16_conv3x3"] == before + 3
     assert torch.equal(y0, y) and torch.equal(s, s2)  # stats identical run to run
     err = (y.float() - ref.float()).abs().max()
     assert float(err) <= bf16_ulp(float(ref.float().abs().max()))
@@ -1068,10 +1074,10 @@ def test_bf16_bottleneck_kernel_equals_plain_twin(device, case):
 
     args = fb.random_block(*case, device, seed=sum(case))
     ref = fb.reference(*args).float()
-    before = fb.LAUNCHES
+    before = kernels.LAUNCHES["yolo_bf16_bottleneck"]
     got = fb.fused_bottleneck(*args).float()
     torch.cuda.synchronize()
-    assert fb.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["yolo_bf16_bottleneck"] == before + 1
     assert not bool(got.isnan().any())
     assert float((got - ref).abs().max()) <= 2 * bf16_ulp(float(ref.abs().max()))
 
@@ -1134,9 +1140,9 @@ def test_fast_metric_on_card_equals_cpu(device, nms):
     from chip_smoke import eval_batches
 
     batches = eval_batches()
-    before = cuda_nms.LAUNCHES
+    before = kernels.LAUNCHES["yolo_nms"]
     got, got_m = _metric_on(batches, device, False, nms)
-    assert cuda_nms.LAUNCHES == before + len(batches)
+    assert kernels.LAUNCHES["yolo_nms"] == before + len(batches)
     ref, ref_m = _metric_on(batches, "cpu", False, nms)
     assert len(got) == 77 and got == ref
     for a, b in zip(got_m._chunks, ref_m._chunks):
@@ -1152,9 +1158,9 @@ def test_precise_metric_on_card_equals_cpu(device, nms):
     from chip_smoke import eval_batches
 
     batches = eval_batches()
-    before = cuda_nms.LAUNCHES
+    before = kernels.LAUNCHES["yolo_nms_f64"]
     got, got_m = _metric_on(batches, device, True, nms)
-    assert cuda_nms.LAUNCHES == before + len(batches)
+    assert kernels.LAUNCHES["yolo_nms_f64"] == before + len(batches)
     ref, ref_m = _metric_on(batches, "cpu", True, nms)
     assert len(got) == 77 and got == ref
     for a, b in zip(got_m._chunks, ref_m._chunks):
@@ -1199,19 +1205,16 @@ def graph_stack():
     from yolo_tpu_torch.models import create_model
     from yolo_tpu_torch.serving import cuda_bottleneck as cb
     from yolo_tpu_torch.serving import winograd
-    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
-                                               make_int8_engine_fn)
+    from yolo_tpu_torch.serving.engine import build_int8_predict, make_int8_engine_fn
 
     dev = torch.device("cuda")
     model = create_model("resnet", 20, 7, 2, device=dev, stage_sizes=(2, 2, 2, 2),
                          image_size=64, generator=torch.Generator(device=dev).manual_seed(0))
     r = np.random.default_rng(4)
     calib = torch.from_numpy(r.normal(size=(4, 64, 64, 3)).astype(np.float32)).to(dev)
-    fn, q = build_int8_predict(model, [calib], impl=default_impl())
-    wfn, wq = build_int8_predict(model, [calib], impl=default_impl(),
-                                 wino=winograd.valid_points((2, 2, 2, 2)))
-    chain = make_int8_engine_fn(7, 2, 20, impl={
-        **default_impl(), **{f"layer{i}": cb.chain_int8 for i in range(1, 5)}})
+    fn, q = build_int8_predict(model, [calib])
+    wfn, wq = build_int8_predict(model, [calib], wino=winograd.valid_points((2, 2, 2, 2)))
+    chain = make_int8_engine_fn(7, 2, 20, impl={f"layer{i}": cb.chain_int8 for i in range(1, 5)})
     return {"default": (fn, q), "wino": (wfn, wq), "chain": (chain, q),
             "exact": YOLOInference(model, dev, image_size=64)}
 
@@ -1238,11 +1241,7 @@ def _median_score(eager, images):
 
 
 def _counts():
-    from yolo_tpu_torch.serving import cuda_bottleneck as cb
-    from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem, cuda_wino
-
-    return (cuda_nms.LAUNCHES, cuda_stem.LAUNCHES, cuda_pool.LAUNCHES, cuda_int8.LAUNCHES,
-            cb.LAUNCHES["chain"], cuda_wino.LAUNCHES["full"])
+    return Counter(kernels.LAUNCHES)
 
 
 @pytest.mark.parametrize("name", GRAPH_ENGINES)
@@ -1325,14 +1324,14 @@ def flagship_engine():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from yolo_tpu_torch.models import create_model
-    from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl
+    from yolo_tpu_torch.serving.engine import build_int8_predict
 
     dev = torch.device("cuda")
     model = create_model("resnet", 20, 7, 2, device=dev, image_size=448,
                          generator=torch.Generator(device=dev).manual_seed(0))
     r = np.random.default_rng(60)
     calib = torch.from_numpy(r.normal(size=(2, 448, 448, 3)).astype(np.float32)).to(dev)
-    fn, q = build_int8_predict(model, [calib], impl=default_impl())
+    fn, q = build_int8_predict(model, [calib])
     del model
     images = torch.from_numpy(r.integers(0, 256, size=(16, 448, 448, 3), dtype=np.uint8))
     conf = float(fn(q, images.to(dev), -1e30, 2.0).scores.float().median())
@@ -1410,15 +1409,15 @@ def test_spans_inside_a_graph_are_timed_at_every_replay(flagship_engine):
     launches of one eager call. With the tracer turned off, the next call
     drops the traced graph and replays the plain one."""
     from yolo_tpu_torch.serving.graphs import GraphedPredict
-    from yolo_tpu_torch.serving.library import launch_counts
     from yolo_tpu_torch.utils import tracing
 
     fn, q, conf, images = flagship_engine
-    before = launch_counts()
+    before = Counter(kernels.LAUNCHES)
     fn(q, images.cuda(), conf, 0.4)
     torch.cuda.synchronize()
-    eager = launch_counts() - before
-    assert eager == {"quant_s2d": 1, "max_pool": 1, "conv_int8": 58, "nms": 1}
+    eager = kernels.LAUNCHES - before
+    assert eager == {"yolo_quant_s2d": 1, "yolo_max_pool_int8": 1, "yolo_int8_conv": 58,
+                     "yolo_nms": 1}
 
     def predict(x):
         with tracing.span("whole"):

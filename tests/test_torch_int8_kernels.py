@@ -27,6 +27,7 @@ from yolo_tpu.serving.engine import _conv_i8, _quantize_input, _requant
 from yolo_tpu.serving.pallas_int8 import transition_conv2_int8
 from yolo_tpu.serving.pallas_stem import quant_s2d_int8
 from yolo_tpu_torch.serving import cuda_int8, cuda_stem
+from yolo_tpu_torch.utils import kernels
 
 
 def _s2d(x):
@@ -62,9 +63,9 @@ def test_stem_front_twin_matches_jax(n, h, w, dtype):
 
 def test_stem_front_wrapper_takes_the_twin_on_the_cpu():
     images = torch.from_numpy(_images(1, (2, 8, 8), "uint8"))
-    before = cuda_stem.LAUNCHES
+    before = kernels.LAUNCHES["yolo_quant_s2d"]
     out = cuda_stem.quant_s2d(images, torch.tensor(0.02))
-    assert cuda_stem.LAUNCHES == before and out.shape == (2, 4, 4, 12)
+    assert kernels.LAUNCHES["yolo_quant_s2d"] == before and out.shape == (2, 4, 4, 12)
     with pytest.raises(ValueError):
         cuda_stem.quant_s2d(images[:, :7], torch.tensor(0.02))  # odd H
 
@@ -151,8 +152,8 @@ def test_pack_weight_layout():
 
 def test_int8_conv_wrapper_takes_the_twin_on_the_cpu():
     x, wq, m, t = (torch.from_numpy(a) for a in _operands(2, 1, 4, 4, 16, 8, 1))
-    before = cuda_int8.LAUNCHES
+    before = kernels.LAUNCHES["yolo_int8_conv"]
     cuda_int8.conv_int8(x, wq, m, t)
-    assert cuda_int8.LAUNCHES == before
+    assert kernels.LAUNCHES["yolo_int8_conv"] == before
     with pytest.raises(ValueError):
         cuda_int8.conv_int8(x, wq, m, t, mode="gelu")

@@ -23,6 +23,7 @@ from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.boxes import iou_pairwise
 from yolo_tpu_torch.ops.decode import Detections, decode_predictions
 from yolo_tpu_torch.ops.nms import batched_nms
+from yolo_tpu_torch.utils import kernels
 
 S, B, C = 7, 2, 20
 
@@ -189,9 +190,9 @@ def test_nms_wrapper_checks_inputs():
         cuda_nms.nms(good._replace(boxes=boxes[:, :-1]))
     with pytest.raises(ValueError):
         cuda_nms.nms(good._replace(boxes=boxes.transpose(0, 1).contiguous().transpose(0, 1)))
-    before = cuda_nms.LAUNCHES
+    before = kernels.LAUNCHES["yolo_nms"]
     cuda_nms.nms(good)
-    assert cuda_nms.LAUNCHES == before  # the CPU path launches nothing
+    assert kernels.LAUNCHES["yolo_nms"] == before  # the CPU path launches nothing
 
 
 def test_iou_pairwise_matches_jax():

@@ -37,6 +37,7 @@ from yolo_tpu_torch.models import create_model
 from yolo_tpu_torch.models.layers import Int8Conv2d, quantize_input
 from yolo_tpu_torch.models.backbones import yolov1_conv_inputs
 from yolo_tpu_torch.serving import cuda_dynq, cuda_int8
+from yolo_tpu_torch.utils import kernels
 
 STAGES, SIZE = (1, 1, 1, 1), 64
 
@@ -115,9 +116,9 @@ def test_inference_only_and_no_kernel_launch_on_the_cpu():
     conv = Int8Conv2d(8, 16, 3, 1, 1)
     with pytest.raises(RuntimeError, match="inference only"):
         conv.train()(torch.ones(1, 8, 5, 5))
-    before = cuda_int8.LAUNCHES, cuda_dynq.LAUNCHES
+    before = kernels.LAUNCHES["yolo_int8_conv"], kernels.LAUNCHES["yolo_dynq"]
     conv.eval()(torch.ones(1, 8, 5, 5))
-    assert (cuda_int8.LAUNCHES, cuda_dynq.LAUNCHES) == before
+    assert (kernels.LAUNCHES["yolo_int8_conv"], kernels.LAUNCHES["yolo_dynq"]) == before
 
 
 def _dynq_numpy(x):
@@ -135,9 +136,9 @@ def test_quantize_input_runs_the_plain_twin_on_the_cpu(case):
     hold the kernel to."""
     x = dynq_input(case)
     c127 = torch.tensor(127.0)
-    before = cuda_dynq.LAUNCHES
+    before = kernels.LAUNCHES["yolo_dynq"]
     xq, s_x = quantize_input(x, c127)
-    assert cuda_dynq.LAUNCHES == before
+    assert kernels.LAUNCHES["yolo_dynq"] == before
     ref_q, ref_s = cuda_dynq.quantize_reference(x, c127)
     assert torch.equal(xq, ref_q) and torch.equal(s_x, ref_s)
     want_q, want_s = _dynq_numpy(x)

@@ -78,7 +78,7 @@ def stack():
     calib = np.random.default_rng(1).normal(size=(8, SIZE, SIZE, 3)).astype(np.float32)
     jfn, qj = jbuild_int8_predict(jmodel, variables, [jnp.asarray(calib)])
     qp = to_torch(qj)
-    pfn = engine.make_int8_engine_fn(7, 2, 20, impl=engine.default_impl())
+    pfn = engine.make_int8_engine_fn(7, 2, 20)
     probe = np.random.default_rng(2).integers(0, 256, (8, SIZE, SIZE, 3), np.uint8)
     conf = pick_threshold(np.asarray(jfn(qj, probe, -1e30, 2.0).scores))
     port = create_model("resnet", 20, 7, 2, device="cpu", stage_sizes=STAGES, image_size=SIZE)

@@ -217,7 +217,7 @@ def test_int8_activations_match_jax_at_every_block(qparams, stem):
         x_q = cuda_stem.quantize_input(engine._normalize_if_uint8(torch.from_numpy(u8)),
                                        qp["s_img"])
         got = engine.kernel_conv(x_q, qp["stem"], 2, 3, "relu")
-    got = engine.max_pool_int8(got)
+    got = cuda_pool.max_pool_int8(got)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg="stem")
     for si, (jblocks, pblocks) in enumerate(zip(qj["layers"], qp["layers"])):
         for bi, (jb, pb) in enumerate(zip(jblocks, pblocks)):
@@ -240,10 +240,35 @@ def test_int8_grid_matches_jax(qparams, stem, fc1):
     qj, qp = qparams[stem, fc1]
     images = np.random.default_rng(4).normal(size=(3, SIZE, SIZE, 3)).astype(np.float32)
     want = np.asarray(jengine.int8_forward(qj, jnp.asarray(images)))
-    got = engine.int8_forward(qp, torch.from_numpy(images), impl=engine.default_impl())
+    got = engine.int8_forward(qp, torch.from_numpy(images))
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max() + 1e-6)
+
+
+@pytest.mark.parametrize("twins", [False, True], ids=["default", "twin overrides"])
+def test_int8_forward_runs_the_stem_and_pool_wrappers_unless_overridden(qparams, monkeypatch,
+                                                                        twins):
+    """With no ``impl`` the engine's stem front and max-pool are the kernel
+    wrappers (kernels on CUDA, twins on the CPU); the two keys override them."""
+    _, qp = qparams["s2d", "int8"]
+    calls = []
+    twin_of = {cuda_stem: cuda_stem.quant_s2d_reference,
+               cuda_pool: cuda_pool.max_pool_int8_reference}
+    for module, name in ((cuda_stem, "quant_s2d"), (cuda_stem, "quant_s2d_reference"),
+                         (cuda_pool, "max_pool_int8"), (cuda_pool, "max_pool_int8_reference")):
+        def record(*args, _name=name, _twin=twin_of[module]):
+            calls.append(_name)
+            return _twin(*args)
+
+        monkeypatch.setattr(module, name, record)
+    impl = {"stem_front": cuda_stem.quant_s2d_reference,
+            "max_pool": cuda_pool.max_pool_int8_reference} if twins else None
+    u8 = np.random.default_rng(5).integers(0, 256, size=(1, SIZE, SIZE, 3), dtype=np.uint8)
+    grid = engine.int8_forward(qp, torch.from_numpy(u8), impl=impl)
+    want = ["quant_s2d_reference", "max_pool_int8_reference"] if twins else [
+        "quant_s2d", "max_pool_int8"]
+    assert calls == want and grid.shape == (1, 7, 7, 30)
 
 
 class _JaxEngine:
@@ -271,7 +296,7 @@ def test_int8_detections_match_jax(qparams, stem, fc1, wire):
 
     images, thr = comparable_batch(jfn, 10, make)
     want = jfn.predict_batch_arrays(images, thr, NMS_T)
-    port = engine.make_int8_engine_fn(7, 2, 20, impl=engine.default_impl())
+    port = engine.make_int8_engine_fn(7, 2, 20)
     got = port(qp, torch.from_numpy(images), thr, NMS_T)
     assert_same_detections(got, want)
     assert 0 < int(np.asarray(want.valid).sum())

@@ -81,14 +81,14 @@ def test_stage_outputs_and_grid_match_jax(q):
 
     want = np.asarray(jengine.int8_forward(qj, jnp.asarray(images),
                                            impl={n: jax_hook(n) for n in LAYERS}))
-    impl = {**engine.default_impl(), **{n: port_hook(n) for n in LAYERS}}
+    impl = {n: port_hook(n) for n in LAYERS}
     got = engine.int8_forward(qp, torch.from_numpy(images), impl=impl)
     assert list(seen_p) == list(seen_j) == LAYERS
     for name in LAYERS:
         np.testing.assert_array_equal(seen_p[name], seen_j[name], err_msg=name)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max() + 1e-6)
-    default = engine.int8_forward(qp, torch.from_numpy(images), impl=engine.default_impl())
+    default = engine.int8_forward(qp, torch.from_numpy(images))
     assert torch.equal(got, default)
 
 
@@ -98,7 +98,7 @@ def test_chained_detections_match_jax(q):
     jfn = _JaxEngine(jengine.make_int8_engine_fn(7, 2, 20, impl=jimpl), qj)
     images, thr = comparable_batch(jfn, 13, lambda seed: _images(seed, 4))
     want = jfn.predict_batch_arrays(images, thr, NMS_T)
-    impl = {**engine.default_impl(), **{n: cb.chain_int8 for n in LAYERS}}
+    impl = {n: cb.chain_int8 for n in LAYERS}
     port = engine.make_int8_engine_fn(7, 2, 20, impl=impl)
     got = port(qp, torch.from_numpy(images), thr, NMS_T)
     assert_same_detections(got, want)
@@ -117,17 +117,17 @@ def test_stage_chain_routing(q):
             return cb.chain_int8_reference(x, qblocks)
         return fn
 
-    impl = {**engine.default_impl(), **{n: hook(n) for n in LAYERS}}
+    impl = {n: hook(n) for n in LAYERS}
     got = engine.int8_forward(qp, images, impl=impl)
     assert calls == [("layer1", (2, 16, 16, 64), 2, [True, False]),
                      ("layer2", (2, 8, 8, 512), 1, [False]),
                      ("layer3", (2, 4, 4, 1024), 1, [False]),
                      ("layer4", (2, 2, 2, 2048), 1, [False])]
-    assert torch.equal(got, engine.int8_forward(qp, images, impl=engine.default_impl()))
+    assert torch.equal(got, engine.int8_forward(qp, images))
 
     # Layers 2-4 cut to their transition blocks: the hook runs for layer1 only.
     calls.clear()
     cut = {**qp, "layers": [qp["layers"][0]] + [blocks[:1] for blocks in qp["layers"][1:]]}
     got = engine.int8_forward(cut, images, impl=impl)
     assert [c[0] for c in calls] == ["layer1"]
-    assert torch.equal(got, engine.int8_forward(cut, images, impl=engine.default_impl()))
+    assert torch.equal(got, engine.int8_forward(cut, images))

@@ -43,7 +43,7 @@ from yolo_tpu.serving.pallas_wino import conv3x3_wino_pallas
 from yolo_tpu_torch.convert import state_dict_from_jax
 from yolo_tpu_torch.inference import YOLOInference
 from yolo_tpu_torch.models import create_model
-from yolo_tpu_torch.serving import cuda_bottleneck, cuda_stem, engine, export, quant
+from yolo_tpu_torch.serving import cuda_bottleneck, cuda_pool, cuda_stem, engine, export, quant
 from yolo_tpu_torch.serving import winograd as pw
 
 from test_torch_inference import assert_same_detections, comparable_batch, randomize
@@ -158,7 +158,7 @@ def _check_every_conv(data, wino, u8):
     (XLA:CPU fuses a multiply into an add now and then)."""
     qj, qp = data["qj"], data["qp"]
     jexact, jown = _jax_impl(wino, _exact_wino), _jax_impl(wino, _jax_wino)
-    pimpl = pw.wino_impl_hooks(wino, engine.default_impl())
+    pimpl = pw.wino_impl_hooks(wino)
     seen = []
 
     def checked(name, jfn, jref, pfn):
@@ -172,7 +172,7 @@ def _check_every_conv(data, wino, u8):
         return conv
 
     want = _jax_stem(qj, jnp.asarray(u8))
-    got = engine.max_pool_int8(engine.kernel_conv(
+    got = cuda_pool.max_pool_int8(engine.kernel_conv(
         cuda_stem.quant_s2d(torch.from_numpy(u8), qp["s_img"]), qp["stem"], 1,
         ((2, 1), (2, 1)), "relu"))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg="stem")
@@ -207,7 +207,7 @@ def _check_grid_and_detections(data, jexact, pimpl, seed, detections=True):
     want = np.asarray(jengine.int8_forward(qj, jnp.asarray(images), impl=jexact))
     got = engine.int8_forward(qp, torch.from_numpy(images), impl=pimpl)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max() + 1e-6)
-    default = engine.int8_forward(qp, torch.from_numpy(images), impl=engine.default_impl())
+    default = engine.int8_forward(qp, torch.from_numpy(images))
     assert not torch.equal(got, default)  # the hooks ran
     if not detections:
         return
@@ -277,11 +277,11 @@ def test_yolo_inference_wino_calibrated_and_lazy(small, tmp_path):
     assert pw.wino_points_of(q) == SMALL_WINO
     images = _images(41, 3, 64)
     got = eng.predict_batch_arrays(images, -1e9, NMS_T)
-    hooks = pw.wino_impl_hooks(SMALL_WINO, engine.default_impl())
+    hooks = pw.wino_impl_hooks(SMALL_WINO)
     want = engine.make_int8_engine_fn(7, 2, 20, impl=hooks)(q, torch.from_numpy(images), -1e9,
                                                             NMS_T)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    plain = engine.make_int8_engine_fn(7, 2, 20, impl=engine.default_impl())(
+    plain = engine.make_int8_engine_fn(7, 2, 20)(
         q, torch.from_numpy(images), -1e9, NMS_T)
     assert not torch.equal(got.scores, plain.scores)  # the Winograd convs ran
 
@@ -302,14 +302,13 @@ def test_a_chain_hook_shadows_its_stage_conv2_s1_hooks(small):
             return fn(*args)
         return hook
 
-    impl = pw.wino_impl_hooks(["l1b0_conv2", "head_conv1"], engine.default_impl())
+    impl = pw.wino_impl_hooks(["l1b0_conv2", "head_conv1"])
     impl["conv2_s1"] = {"l1b0": record("conv2_s1", impl["conv2_s1"]["l1b0"])}
     impl["head_conv1"] = record("head_conv1", impl["head_conv1"])
     impl["layer1"] = record("layer1", cuda_bottleneck.chain_int8)
     got = engine.int8_forward(qp, images, impl=impl)
     assert calls == ["layer1", "head_conv1"]
-    want = engine.int8_forward(qp, images, impl={
-        **engine.default_impl(), "head_conv1": impl["head_conv1"]})
+    want = engine.int8_forward(qp, images, impl={"head_conv1": impl["head_conv1"]})
     assert torch.equal(got, want)
 
 

@@ -10,17 +10,21 @@ on the plain twins: ``Trainer.train_step``'s five phases (losses and
 parameters bit for bit the same with tracing on and off), the int8 engine's
 ``engine.build`` and ``engine.max_pool``, ``Int8Conv2d``'s quantize pass,
 the batcher's spans and fill counter (which counts with tracing off too),
-the launch counters, and ``GraphedPredict``'s counts and its traced graph,
+the kernels' launch seam (``kernels.launch`` against a stand-in library, and
+``kernels.SIGNATURES`` against the C entry points of ``csrc/*.cu``), and
+``GraphedPredict``'s counts and its traced graph,
 replayed one call in ``READ_EVERY`` while the tracer is on (with a stand-in
 graph).
 """
 
 import contextlib
 import copy
+import ctypes
+import re
 import subprocess
 import sys
 import threading
-from collections import namedtuple
+from collections import Counter, namedtuple
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +38,7 @@ from yolo_tpu_torch.serving.batcher import RequestBatcher
 from yolo_tpu_torch.serving.engine import build_int8_predict
 from yolo_tpu_torch.training.optim import make_optimizer
 from yolo_tpu_torch.training.trainer import Trainer
-from yolo_tpu_torch.utils import tracing
+from yolo_tpu_torch.utils import kernels, tracing
 
 REPO = Path(__file__).resolve().parents[1]
 STAGES, SIZE = (1, 1, 1, 1), 64
@@ -391,18 +395,88 @@ def test_the_batcher_counts_its_fill_with_tracing_off():
     assert tracing.take().spans == []
 
 
-def test_launch_counts_name_every_serving_kernel_counter(monkeypatch):
-    from yolo_tpu_torch.serving import cuda_bottleneck, cuda_int8, cuda_pool, cuda_wino, library
+class FakeLibrary:
+    """A stand-in for the kernels' library: every entry point records its
+    arguments and returns ``code``."""
 
-    before = library.launch_counts()
-    assert {"quant_s2d", "max_pool", "conv_int8", "nms", "bottleneck", "chain",
-            "wino.full"} <= set(before)
-    monkeypatch.setattr(cuda_int8, "LAUNCHES", cuda_int8.LAUNCHES + 3)
-    monkeypatch.setattr(cuda_pool, "LAUNCHES", cuda_pool.LAUNCHES + 1)
-    monkeypatch.setitem(cuda_bottleneck.LAUNCHES, "chain", cuda_bottleneck.LAUNCHES["chain"] + 2)
-    monkeypatch.setitem(cuda_wino.LAUNCHES, "full", cuda_wino.LAUNCHES["full"] + 1)
-    assert library.launch_counts() - before == {"conv_int8": 3, "max_pool": 1, "chain": 2,
-                                                "wino.full": 1}
+    def __init__(self, code=0):
+        self.code, self.calls = code, []
+
+    def yolo_cuda_error_string(self, code):
+        return b"stand-in error"
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.code
+
+        return entry
+
+
+@pytest.fixture
+def seam(monkeypatch):
+    """``kernels.launch`` on a stand-in library, with current device 0, a
+    raw stream of 1000 + the device's index, a fresh ``LAUNCHES`` and the
+    device guards it enters recorded."""
+    lib, guards = FakeLibrary(), []
+
+    def guard(index):
+        guards.append(index)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    monkeypatch.setattr(kernels, "LAUNCHES", Counter())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index,
+                        raising=False)
+    return lib, guards
+
+
+GRID = ctypes.c_int(0)
+LAUNCH_CASES = {
+    "pool on the current device": ("yolo_max_pool_int8", 0, (11, 22, 2, 8, 8, 16)),
+    "nms on another device": ("yolo_nms_f64", 1, (1, 2, 3, 4, 5, 2, 7, 0.5, 1e-6)),
+    "chain with an out-parameter": ("yolo_int8_chain", 0, (1, 2, None, 4, 5, 1, 2, 8, 8, 64,
+                                                           64, 64, 8, 8, ctypes.byref(GRID))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+def test_launch_passes_the_stream_last_and_counts_the_call(seam, case):
+    lib, guards = seam
+    name, index, args = LAUNCH_CASES[case]
+    kernels.launch(name, torch.device("cuda", index), *args)
+    assert lib.calls == [(name, (*args, 1000 + index))]  # out-parameters pass unchanged
+    assert kernels.LAUNCHES == {name: 1}
+    assert guards == ([] if index == 0 else [index])  # the guard only for another device
+
+
+@pytest.mark.parametrize("name", ["yolo_int8_conv", "yolo_bn_stats"])
+def test_launch_raises_naming_the_entry_point_and_does_not_count(seam, name):
+    lib, _ = seam
+    lib.code = 700
+    with pytest.raises(RuntimeError, match=rf"{name} launch failed: cudaError 700"):
+        kernels.launch(name, torch.device("cuda", 0), 1, 2)
+    assert kernels.LAUNCHES == {}
+
+
+def _c_entry_points():
+    """{name: parameter count} of every ``int yolo_*(`` definition in ``csrc/*.cu``."""
+    out = {}
+    for src in sorted(kernels.CSRC.glob("*.cu")):
+        for name, params in re.findall(r"^int (yolo_\w+)\(([^)]*)\)", src.read_text(), re.M):
+            out[name] = params.count(",") + 1
+    return out
+
+
+def test_signatures_name_every_c_entry_point():
+    assert set(kernels.SIGNATURES) == set(_c_entry_points())
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SIGNATURES))
+def test_signature_has_the_c_parameter_count(name):
+    assert len(kernels.SIGNATURES[name]) == _c_entry_points()[name]
 
 
 class FakeGraph:
@@ -422,7 +496,7 @@ def graphed(monkeypatch, fake_cuda):
     """A ``GraphedPredict`` whose device is the CPU, with no warm-up and a
     stand-in capture: the callable runs under the stand-in stream capture,
     counts 2 int8 conv launches, and its graph records its events again."""
-    from yolo_tpu_torch.serving import cuda_int8, graphs
+    from yolo_tpu_torch.serving import graphs
 
     def predict(x):
         with tracing.span("graphed.whole"):
@@ -433,7 +507,7 @@ def graphed(monkeypatch, fake_cuda):
         fake_cuda["capturing"] = True
         try:
             static_out = predict(static_in)
-            cuda_int8.LAUNCHES += 2
+            kernels.LAUNCHES["yolo_int8_conv"] += 2
         finally:
             fake_cuda["capturing"] = False
         return FakeGraph(FakeEvent.made[first:]), static_out
@@ -441,7 +515,7 @@ def graphed(monkeypatch, fake_cuda):
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(graphs.GraphedPredict, "_warm_up", lambda self, static_in: None)
     monkeypatch.setattr(graphs.GraphedPredict, "_graph_of", graph_of)
-    monkeypatch.setattr(cuda_int8, "LAUNCHES", cuda_int8.LAUNCHES)
+    monkeypatch.setattr(kernels, "LAUNCHES", Counter())
     g = graphs.GraphedPredict(predict, torch.device("cuda", 0))
     g.device = torch.device("cpu")
     return g
@@ -462,7 +536,7 @@ def test_graphed_predict_replays_the_traced_graph_one_call_in_read_every(graphed
     assert all(o is g.static_out for o in outs if o is not g.traced_out)
     assert g.graph.events == [] and len(g.traced.events) == 2  # nodes only in the traced graph
     assert graphed.captures == 2 and graphed.replays == calls
-    assert graphed.launches() == {"conv_int8": 2 * calls}
+    assert graphed.launches() == {"yolo_int8_conv": 2 * calls}
     taken = tracing.take()
     names = _names(taken)
     assert names.count("graphs.capture") == 2
@@ -500,4 +574,4 @@ def test_graphed_predict_keeps_the_traced_graph_only_while_the_tracer_is_on(grap
     graphed(images)
     assert g.traced is not None and g.graph is plain
     assert graphed.captures == 3 and graphed.replays == tracing.READ_EVERY + 2
-    assert graphed.launches() == {"conv_int8": 2 * (tracing.READ_EVERY + 2)}
+    assert graphed.launches() == {"yolo_int8_conv": 2 * (tracing.READ_EVERY + 2)}

@@ -237,8 +237,7 @@ def task_eval(mesh, cfg, workdir):
     gathered, and the single-process engine on the rank's rows."""
     from yolo_tpu_torch.metrics import evaluate_model
     from yolo_tpu_torch.parallel import batch_slice
-    from yolo_tpu_torch.serving.engine import (default_impl, gather_detections,
-                                               make_int8_engine_fn,
+    from yolo_tpu_torch.serving.engine import (gather_detections, make_int8_engine_fn,
                                                make_sharded_int8_engine_fn)
 
     model = tiny_model(cfg["state_dict"])
@@ -249,9 +248,9 @@ def task_eval(mesh, cfg, workdir):
            "jax_grid_keys": evaluate_model(None, loader, forward_fn=_GridLookup(
                mesh, cfg["grids"]), **common)}
     images, thr = torch.from_numpy(cfg["engine_images"]), cfg["thr"]
-    predict = make_sharded_int8_engine_fn(mesh, 7, 2, 20, impl=default_impl())
+    predict = make_sharded_int8_engine_fn(mesh, 7, 2, 20)
     local = predict(cfg["q"], images, thr, 0.4)
-    single = make_int8_engine_fn(7, 2, 20, impl=default_impl())(
+    single = make_int8_engine_fn(7, 2, 20)(
         cfg["q"], batch_slice(mesh, images), thr, 0.4)
     out["local_equal"] = all(torch.equal(a, b) for a, b in zip(local, single))
     out["gathered"] = gather_detections(mesh, local)

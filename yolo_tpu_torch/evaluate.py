@@ -181,8 +181,7 @@ def _evaluate(args, mesh, device, first: bool):
 
     forward_fn = None
     if args.engine or args.int8:
-        from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
-                                                   int8_forward, load_artifact)
+        from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward, load_artifact
 
         if args.engine:
             try:
@@ -202,8 +201,8 @@ def _evaluate(args, mesh, device, first: bool):
                         break
             finally:
                 calib_loader.close()
-            impl = default_impl()
-            _, q = build_int8_predict(model, calib, impl=impl)
+            impl = None
+            _, q = build_int8_predict(model, calib)
             print(f"int8 serving engine: calibrated on {sum(c.shape[0] for c in calib)} "
                   f"images of --calib-data {args.calib_data}")
 

@@ -39,8 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
+from yolo_tpu_torch.utils import kernels
 
 K_ALIGN = 32  # the kernel's K step: packed weights are zero-padded to it
 BM = 64  # rows of one stats partial (a consumer warpgroup's share of the kernel's 128-row tile)
@@ -122,9 +121,6 @@ def conv3x3_bf16(x: torch.Tensor, w9: torch.Tensor, stats: bool = False,
     with ``stats``, the (2, K) float32 sums of the float32 accumulators and of
     their squares (else None). ``wk``: ``pack_weight(w9)``, packed now if not
     given."""
-    global LAUNCHES
-    from yolo_tpu_torch.utils import kernels
-
     wk = pack_weight(w9) if wk is None else wk
     _check(x, w9, wk)
     n, h, w, c = x.shape
@@ -135,14 +131,9 @@ def conv3x3_bf16(x: torch.Tensor, w9: torch.Tensor, stats: bool = False,
         s = torch.empty((2, k), dtype=torch.float32, device=x.device)
         ws = torch.empty(stats_workspace_shape(n, h, w, k), dtype=torch.float32,
                          device=x.device)
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        code = lib.yolo_bf16_conv3x3(
-            x.data_ptr(), wk.data_ptr(), y.data_ptr(), ws.data_ptr() if stats else None,
-            s.data_ptr() if stats else None, n, h, w, c, k, int(stats),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_bf16_conv3x3 launch")
-    LAUNCHES += 1
+    kernels.launch("yolo_bf16_conv3x3", x.device, x.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                   ws.data_ptr() if stats else None, s.data_ptr() if stats else None, n, h, w,
+                   c, k, int(stats))
     return y, s
 
 

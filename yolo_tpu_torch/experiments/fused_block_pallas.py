@@ -35,8 +35,7 @@ from yolo_tpu_torch.serving import cuda_bottleneck
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
+from yolo_tpu_torch.utils import kernels
 
 ALIGN = 16  # CIN and P: multiples of 16 (one bf16 mma depth)
 K_ALIGN = 32  # packed weight rows are zero-padded to it (64-byte rows)
@@ -110,9 +109,6 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3,
     b1, b2 (P,), b3 (CIN,) float32 -> (N, H, W, CIN) bf16. ``packed``:
     ``pack_weights(w1, w2, w3)``, packed now if not given; ``tile``: the
     output tile (TH, TW), ``cuda_bottleneck.plan``'s if not given."""
-    global LAUNCHES
-    from yolo_tpu_torch.utils import kernels
-
     _check(x, w1, b1, w2, b2, w3, b3)
     w1p, w2p, w3p = pack_weights(w1, w2, w3) if packed is None else packed
     n, h, w, cin = x.shape
@@ -120,14 +116,9 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3,
     pl = (cuda_bottleneck.plan(n, h, w, cin, cin, p, e=2) if tile is None
           else cuda_bottleneck.layout(n, h, w, cin, cin, p, 2, *tile))
     out = torch.empty_like(x)
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        code = lib.yolo_bf16_bottleneck(
-            x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
-            w3p.data_ptr(), b3.data_ptr(), out.data_ptr(), n, h, w, cin, p, pl.th, pl.tw,
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_bf16_bottleneck launch")
-    LAUNCHES += 1
+    kernels.launch("yolo_bf16_bottleneck", x.device, x.data_ptr(), w1p.data_ptr(),
+                   b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(), w3p.data_ptr(), b3.data_ptr(),
+                   out.data_ptr(), n, h, w, cin, p, pl.th, pl.tw)
     return out
 
 

@@ -38,9 +38,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
-
 K_ALIGN = 64  # the kernel's K step: packed weights are zero-padded to it
 # experiments/mosaic_int8_dot.py:83-89: (name, K, N).
 CASES = (
@@ -103,7 +100,6 @@ def int8_dot(a: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
     (1, N) float32) to (M, N) int8 by the int8 conv kernel, a 1x1 conv over
     an (M, 1, 1, K) view (module docstring). ``wk``: ``pack_weight(w)``,
     packed now if not given."""
-    global LAUNCHES
     from yolo_tpu_torch.serving import cuda_int8
 
     wk = pack_weight(w) if wk is None else wk
@@ -115,7 +111,6 @@ def int8_dot(a: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
     N = wk.shape[0]
     out = cuda_int8.launch(a.view(M, 1, 1, K), wk, m.reshape(N), _zeros(N, a.device),
                            1, 1, 1, 0, "none")
-    LAUNCHES += 1
     return out.view(M, N)
 
 

@@ -29,8 +29,7 @@ from typing import Tuple
 
 import torch
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
+from yolo_tpu_torch.utils import kernels
 
 # experiments/opt_update_microbench.py:53 (the reference recipe's Adam + L2).
 B1, B2, EPS, WD = 0.9, 0.999, 1e-8, 5e-4
@@ -79,17 +78,9 @@ def _check(p, m, v, g, scalars) -> None:
 def cuda_update(p, m, v, g, scalars) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One clip + L2 + Adam step of ``csrc/adam_update.cu``, in place on p, m, v
     (returned). ``scalars``: (4,) float32 on the card = s, c1, c2, lr."""
-    global LAUNCHES
-    from yolo_tpu_torch.utils import kernels
-
     _check(p, m, v, g, scalars)
-    lib = kernels.load()
-    with torch.cuda.device(p.device):
-        code = lib.yolo_adam_update(p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
-                                    scalars.data_ptr(), p.numel(),
-                                    torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_adam_update launch")
-    LAUNCHES += 1
+    kernels.launch("yolo_adam_update", p.device, p.data_ptr(), m.data_ptr(), v.data_ptr(),
+                   g.data_ptr(), scalars.data_ptr(), p.numel())
     return p, m, v
 
 

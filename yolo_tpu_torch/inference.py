@@ -158,13 +158,13 @@ class YOLOInference:
 
     # --------------------------------------------------------------- int8 engine
     def _build_int8(self, calibration, wino):
-        from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl
+        from yolo_tpu_torch.serving.engine import build_int8_predict
 
         state = self._int8_state
         if calibration is not None:
             # Materialized first, so that a generator still counts its images.
             calibration = [torch.as_tensor(b, device=self.device) for b in calibration]
-            fn, q = build_int8_predict(self.model, calibration, impl=default_impl(), wino=wino)
+            fn, q = build_int8_predict(self.model, calibration, wino=wino)
             state.update(fn=fn, q=q, n_calib=sum(int(b.shape[0]) for b in calibration))
             return lambda images, conf, nms_t: fn(q, images, conf, nms_t)
 
@@ -187,7 +187,7 @@ class YOLOInference:
                 calib = images[:n_calib]
                 calib = device_normalize(calib) if calib.dtype == torch.uint8 else calib
                 state["fn"], state["q"] = build_int8_predict(
-                    self.model, [calib.to(torch.float32)], impl=default_impl(), wino=wino)
+                    self.model, [calib.to(torch.float32)], wino=wino)
                 state["n_calib"] = n_calib
             return state["fn"](state["q"], images, conf, nms_t)
 

@@ -25,8 +25,6 @@ from yolo_tpu_torch.ops.boxes import EPSILON
 from yolo_tpu_torch.ops.decode import Detections
 from yolo_tpu_torch.utils import kernels
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
 #: Largest candidate count per image the kernel takes (two candidates a
 #: thread of 512, csrc/nms.cu).
 MAX_CANDIDATES = 1024
@@ -89,22 +87,12 @@ def nms_reference(
 
 
 def _launch(boxes, scores, class_ids, valid, iou_threshold, eps) -> torch.Tensor:
-    global LAUNCHES
-    device = scores.device
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):  # the kernel launches on the current device
-            return _launch(boxes, scores, class_ids, valid, iou_threshold, eps)
     n, K = scores.shape
-    keep = torch.empty((n, K), dtype=torch.bool, device=device)
-    lib = kernels.load()
-    entry = lib.yolo_nms_f64 if scores.dtype == torch.float64 else lib.yolo_nms
-    code = entry(
-        boxes.data_ptr(), scores.data_ptr(), class_ids.data_ptr(), valid.data_ptr(),
-        keep.data_ptr(), n, K, iou_threshold, eps,
-        torch._C._cuda_getCurrentRawStream(device.index),
-    )
-    kernels.check(code, "yolo_nms launch")
-    LAUNCHES += 1
+    keep = torch.empty((n, K), dtype=torch.bool, device=scores.device)
+    entry = "yolo_nms_f64" if scores.dtype == torch.float64 else "yolo_nms"
+    kernels.launch(entry, scores.device, boxes.data_ptr(), scores.data_ptr(),
+                   class_ids.data_ptr(), valid.data_ptr(), keep.data_ptr(), n, K,
+                   iou_threshold, eps)
     return keep
 
 

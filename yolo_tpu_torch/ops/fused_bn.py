@@ -17,7 +17,7 @@ A CUDA tensor launches the kernel or the call raises; a CPU tensor takes
 the twin. On the card an activation is a channels_last 4-D tensor (or a
 contiguous 2-D (M, C) one): an operand in another layout, as a gradient can
 arrive in ``backward``, is copied once into channels_last and counted in
-:data:`RELAYOUTS`. :data:`LAUNCHES` counts kernel launches by name.
+:data:`RELAYOUTS`. ``kernels.LAUNCHES`` counts the launches by C entry point.
 
 :func:`fused_bn_act` (the ``"full"`` mode) differentiates through
 ``bn_bwd_reduce`` and ``bn_bwd_dx``; :func:`bn_stats_diff` (the ``"stats"``
@@ -42,10 +42,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from yolo_tpu_torch.utils import kernels
+
 EPS = 1e-5
 
-#: Kernel launches by kernel since the counts were last reset (set each to 0).
-LAUNCHES = {"stats": 0, "normalize": 0, "bwd_reduce": 0, "bwd_dx": 0}
 #: Operands copied into channels_last before a launch.
 RELAYOUTS = 0
 #: All-reduces of synchronized statistics (forward and backward) since last set to 0.
@@ -157,16 +157,6 @@ def _scalars(*rows: torch.Tensor) -> torch.Tensor:
     return torch.stack([r.float() for r in rows]).contiguous()
 
 
-def _call(fn, name: str, device: torch.device, *args) -> None:
-    from yolo_tpu_torch.utils import kernels
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(kernels.load(), fn)(*args, stream)
-    kernels.check(code, f"{fn} launch")
-    LAUNCHES[name] += 1
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -178,8 +168,8 @@ def _launch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     g = row_groups(m, c, x.element_size())
     ws = torch.empty((g, 2, c), dtype=torch.float32, device=x.device)
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    _call("yolo_bn_stats", "stats", x.device, x.data_ptr(), ws.data_ptr(), out.data_ptr(),
-          m, c, g, _DTYPES[x.dtype])
+    kernels.launch("yolo_bn_stats", x.device, x.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                   m, c, g, _DTYPES[x.dtype])
     return out[0], out[1]
 
 
@@ -190,9 +180,9 @@ def _launch_normalize(x, mul, add, residual, relu) -> torch.Tensor:
     m, c = _rows_cols(x)
     y = torch.empty_like(x)
     scal = _scalars(mul, add)
-    _call("yolo_bn_normalize", "normalize", x.device, x.data_ptr(), _ptr(residual),
-          scal.data_ptr(), y.data_ptr(), m, c, row_groups(m, c, x.element_size()),
-          _DTYPES[x.dtype], int(relu))
+    kernels.launch("yolo_bn_normalize", x.device, x.data_ptr(), _ptr(residual),
+                   scal.data_ptr(), y.data_ptr(), m, c, row_groups(m, c, x.element_size()),
+                   _DTYPES[x.dtype], int(relu))
     return y
 
 
@@ -205,9 +195,9 @@ def _launch_bwd_reduce(g, out, x, mean, r, relu):
     scal = _scalars(r, -mean * r)
     ws = torch.empty((groups, 2, c), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    _call("yolo_bn_bwd_reduce", "bwd_reduce", x.device, g.data_ptr(), _ptr(out),
-          x.data_ptr(), scal.data_ptr(), ws.data_ptr(), sums.data_ptr(), m, c, groups,
-          _DTYPES[x.dtype], int(relu))
+    kernels.launch("yolo_bn_bwd_reduce", x.device, g.data_ptr(), _ptr(out), x.data_ptr(),
+                   scal.data_ptr(), ws.data_ptr(), sums.data_ptr(), m, c, groups,
+                   _DTYPES[x.dtype], int(relu))
     return sums[0], sums[1]
 
 
@@ -219,9 +209,9 @@ def _launch_bwd_dx(g, out, x, a, b, d, relu, want_dres):
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if want_dres else None
     scal = _scalars(a, b, -d)
-    _call("yolo_bn_bwd_dx", "bwd_dx", x.device, g.data_ptr(), _ptr(out), x.data_ptr(),
-          scal.data_ptr(), dx.data_ptr(), _ptr(dres), m, c,
-          row_groups(m, c, x.element_size()), _DTYPES[x.dtype], int(relu))
+    kernels.launch("yolo_bn_bwd_dx", x.device, g.data_ptr(), _ptr(out), x.data_ptr(),
+                   scal.data_ptr(), dx.data_ptr(), _ptr(dres), m, c,
+                   row_groups(m, c, x.element_size()), _DTYPES[x.dtype], int(relu))
     return dx, dres
 
 

@@ -7,8 +7,8 @@ until it detects (the ``overfit_check`` recipe), then runs the same images
 through
 
 1. the trained model (bf16 autocast, the JAX tool's bf16 model: "fp32/bf16");
-2. the default int8 engine (``default_impl()``: the stem-front kernel and
-   the int8 conv kernel for every conv), calibrated on a held-out synthetic
+2. the default int8 engine (the stem-front and max-pool kernels and the
+   int8 conv kernel for every conv), calibrated on a held-out synthetic
    batch of the same recipe (seed 1);
 3. with ``--chain``, the same engine with stages 1-3 as fused chains
    (``cuda_bottleneck.chain_int8``; JAX's ``--pallas``);
@@ -74,7 +74,7 @@ def main(argv=None) -> int:
     import torch
 
     from yolo_tpu_torch.serving.cuda_bottleneck import chain_int8
-    from yolo_tpu_torch.serving.engine import build_int8_predict, default_impl, int8_forward
+    from yolo_tpu_torch.serving.engine import build_int8_predict, int8_forward
     from yolo_tpu_torch.serving.winograd import check_points, wino_impl_hooks
 
     wino = tuple(n for n in args.wino.split(",") if n)
@@ -93,18 +93,18 @@ def main(argv=None) -> int:
     calib = [torch.from_numpy(calibration_batch(args.batch, args.size)).to(images.device)]
     with torch.inference_mode():
         _, q = build_int8_predict(model, calib)
-        preds_i8 = int8_forward(q, images, S=model.S, impl=default_impl())
+        preds_i8 = int8_forward(q, images, S=model.S)
     evaluate("int8", preds_i8, targets, results)
 
     engines = []
     if args.chain:
-        impl = {**default_impl(), **{f"layer{s}": chain_int8 for s in (1, 2, 3)}}
+        impl = {f"layer{s}": chain_int8 for s in (1, 2, 3)}
         with torch.inference_mode():
             engines.append(("int8-chain", int8_forward(q, images, S=model.S, impl=impl)))
     if wino:
         with torch.inference_mode():
             _, qw = build_int8_predict(model, calib, wino=wino)
-            impl = wino_impl_hooks(wino, default_impl())
+            impl = wino_impl_hooks(wino)
             engines.append(("int8-wino", int8_forward(qw, images, S=model.S, impl=impl)))
     for tag, preds in engines:
         evaluate(tag, preds, targets, results)

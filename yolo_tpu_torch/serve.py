@@ -118,8 +118,8 @@ def build_predict(args):
     """
     import torch
 
-    from yolo_tpu_torch.serving.engine import (build_int8_predict, default_impl,
-                                               load_artifact, make_int8_engine_fn)
+    from yolo_tpu_torch.serving.engine import (build_int8_predict, load_artifact,
+                                               make_int8_engine_fn)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -147,7 +147,7 @@ def build_predict(args):
         model.load_state_dict(state_dict)
         geom = (model.S, model.B, model.num_classes)
         calib = [torch.from_numpy(b).to(device) for b in _calibration_batches(args)]
-        fn, q = build_int8_predict(model, calib, impl=default_impl())
+        fn, q = build_int8_predict(model, calib)
 
     conf = DEFAULT_CONF if args.conf_threshold is None else float(args.conf_threshold)
     nms = DEFAULT_NMS if args.nms_threshold is None else float(args.nms_threshold)

@@ -37,9 +37,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from yolo_tpu_torch.serving import cuda_int8, engine
+from yolo_tpu_torch.utils import kernels
 
-#: Kernel launches since the counts were last reset (set each to 0 to reset).
-LAUNCHES = {"bottleneck": 0, "chain": 0}
 #: Thread blocks the last launch kept resident (one an SM, each walking tiles).
 LAST_GRID = 0
 
@@ -261,8 +260,6 @@ def block_int8(x_q: torch.Tensor, qb: Dict,
     c, p = _check(x_q, [qb])
     if x_q.device.type != "cuda":
         return block_int8_reference(x_q, qb)
-    from yolo_tpu_torch.utils import kernels
-
     global LAST_GRID
     n, h, w, _ = x_q.shape
     pl = plan(n, h, w, c, c, p) if tile is None else layout(n, h, w, c, c, p, 1, *tile)
@@ -270,13 +267,8 @@ def block_int8(x_q: torch.Tensor, qb: Dict,
     ptrs = _pointer_array([qb], x_q.device, keep)
     out = torch.empty_like(x_q)
     grid = ctypes.c_int(0)
-    lib = kernels.load()
-    with torch.cuda.device(x_q.device):
-        code = lib.yolo_int8_bottleneck(x_q.data_ptr(), out.data_ptr(), ptrs, n, h, w, c, p,
-                                        pl.th, pl.tw, ctypes.byref(grid),
-                                        torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_int8_bottleneck launch")
-    LAUNCHES["bottleneck"] += 1
+    kernels.launch("yolo_int8_bottleneck", x_q.device, x_q.data_ptr(), out.data_ptr(), ptrs, n,
+                   h, w, c, p, pl.th, pl.tw, ctypes.byref(grid))
     LAST_GRID = grid.value
     return out
 
@@ -293,8 +285,6 @@ def chain_int8(x_q: torch.Tensor, qblocks: Sequence[Dict],
     c, p = _check(x_q, qblocks)
     if x_q.device.type != "cuda":
         return chain_int8_reference(x_q, qblocks)
-    from yolo_tpu_torch.utils import kernels
-
     global LAST_GRID
     n, h, w, cin = x_q.shape
     ds = qblocks[0]["downsample"] is not None
@@ -306,14 +296,9 @@ def chain_int8(x_q: torch.Tensor, qblocks: Sequence[Dict],
     tmp = torch.empty_like(out) if len(qblocks) > 1 else None
     barrier = torch.empty(1, dtype=torch.int32, device=x_q.device)
     grid = ctypes.c_int(0)
-    lib = kernels.load()
-    with torch.cuda.device(x_q.device):
-        code = lib.yolo_int8_chain(
-            x_q.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(),
-            barrier.data_ptr(), ptrs, len(qblocks), n, h, w, cin, c, p, pl.th, pl.tw,
-            ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_int8_chain launch")
-    LAUNCHES["chain"] += 1
+    kernels.launch("yolo_int8_chain", x_q.device, x_q.data_ptr(), out.data_ptr(),
+                   None if tmp is None else tmp.data_ptr(), barrier.data_ptr(), ptrs,
+                   len(qblocks), n, h, w, cin, c, p, pl.th, pl.tw, ctypes.byref(grid))
     LAST_GRID = grid.value
     return out
 

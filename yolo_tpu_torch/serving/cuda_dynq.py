@@ -10,9 +10,9 @@ that reduces the partials and quantizes) for CUDA tensors and runs
 :func:`quantize_reference` (the six eager passes: abs, amax, divide, round,
 clamp, int8 cast) for CPU tensors. A CUDA tensor never reaches the plain
 version: the kernels run or the call raises. Both are bit-identical for
-finite input, since the kernels divide and round as torch does. A call
-counts once in :data:`LAUNCHES` though it launches two kernels, as
-``cuda_wino`` counts a conv.
+finite input, since the kernels divide and round as torch does. A call is
+one C call, ``yolo_dynq``, and counts once in ``kernels.LAUNCHES`` though it
+launches two kernels.
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ import torch
 
 from yolo_tpu_torch.utils import kernels
 
-#: Quantize calls since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
 #: Elements one block takes a loop step (256 threads x 4 float4).
 BLOCK_ELEMENTS = 4096
 #: The most blocks a pass launches: 4 resident a SM on the 132 SMs of an H100.
@@ -54,21 +52,14 @@ def _check(x: torch.Tensor) -> None:
 
 
 def _launch(x: torch.Tensor):
-    global LAUNCHES
     device = x.device
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):  # the kernels launch on the current device
-            return _launch(x)
     # A channels_last x is NHWC-contiguous as it stands; another layout or
     # dtype is made so first (the eager version's .float() and layout do the same).
     xh = x.permute(0, 2, 3, 1).float().contiguous()
     n, grid = xh.numel(), blocks(xh.numel())
     xq = torch.empty(xh.shape, dtype=torch.int8, device=device)
     buf = torch.empty(1 + grid, dtype=torch.float32, device=device)  # s_x, then the partials
-    code = kernels.load().yolo_dynq(xh.data_ptr(), n, xq.data_ptr(), buf.data_ptr(), grid,
-                                    torch._C._cuda_getCurrentRawStream(device.index))
-    kernels.check(code, "yolo_dynq launch")
-    LAUNCHES += 1
+    kernels.launch("yolo_dynq", device, xh.data_ptr(), n, xq.data_ptr(), buf.data_ptr(), grid)
     return xq, buf[0]
 
 

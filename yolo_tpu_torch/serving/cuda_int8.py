@@ -15,7 +15,8 @@ kernel reads them repacked once as (Cout, Kpad), K contiguous
 Its mainloop is the wgmma core it shares with the bf16 conv
 (``csrc/sm90_conv_core.cuh``); :func:`plan` picks its output tile and its
 K splits by shape, and a split conv's exact int32 partials are summed by a
-second pass that runs the epilogue once (one count in :data:`LAUNCHES`).
+second pass that runs the epilogue once (one C call, one count in
+``kernels.LAUNCHES``).
 
 Epilogue modes, in the op order of yolo_tpu/serving/engine.py::_requant:
 
@@ -40,15 +41,13 @@ runs or the call raises.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
+from yolo_tpu_torch.utils import kernels
 
 MODES = {"relu": 0, "none": 1, "residual": 2, "leaky": 3, "float": 4, "acc": 5}
 K_ALIGN = 64  # the kernel's K step: packed weights are zero-padded to it
@@ -211,11 +210,9 @@ def launch_buffers(x_shape, cout: int, kh: int, kw: int, stride: int, pad: Pad, 
 
 
 def launch(x, wk, m, t, kh, kw, stride, pad, mode, res=None, r=None) -> torch.Tensor:
-    """One kernel call on checked CUDA operands (see :func:`conv_int8`); the
-    caller counts it. The int8 dot of ``experiments/mosaic_int8_dot.py``
-    runs here too, as a 1x1 conv with mode ``"none"`` and ``t = 0``."""
-    from yolo_tpu_torch.utils import kernels
-
+    """One kernel call on checked CUDA operands (see :func:`conv_int8`). The
+    int8 dot of ``experiments/mosaic_int8_dot.py`` runs here too, as a 1x1
+    conv with mode ``"none"`` and ``t = 0``."""
     n, h, w, cin = x.shape
     cout, kpad = wk.shape
     pt, _, pl, _ = _pads(pad)
@@ -223,20 +220,12 @@ def launch(x, wk, m, t, kh, kw, stride, pad, mode, res=None, r=None) -> torch.Te
     _, ho, wo, _ = out.shape
     if mode == "residual" and tuple(res.shape) != tuple(out.shape):
         raise ValueError(f"conv_int8: res must be {tuple(out.shape)}, got {tuple(res.shape)}")
-    lib = kernels.load()
-    # Entering the device's context costs host time on every call; only a
-    # tensor on another than the current device needs it.
-    on_current = x.device.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if on_current else torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yolo_int8_conv(
-            x.data_ptr(), wk.data_ptr(), m.data_ptr(), t.data_ptr(),
-            res.data_ptr() if res is not None else None,
-            r.data_ptr() if r is not None else None, out.data_ptr(),
-            n, h, w, cin, ho, wo, cout, kh, kw, stride, pt, pl, kpad, MODES[mode],
-            tile, splits, ws.data_ptr() if ws is not None else None, stream,
-        )
-    kernels.check(code, "yolo_int8_conv launch")
+    kernels.launch(
+        "yolo_int8_conv", x.device, x.data_ptr(), wk.data_ptr(), m.data_ptr(), t.data_ptr(),
+        res.data_ptr() if res is not None else None, r.data_ptr() if r is not None else None,
+        out.data_ptr(), n, h, w, cin, ho, wo, cout, kh, kw, stride, pt, pl, kpad, MODES[mode],
+        tile, splits, ws.data_ptr() if ws is not None else None,
+    )
     return out
 
 
@@ -249,7 +238,6 @@ def conv_int8(x: torch.Tensor, wq: torch.Tensor, m: torch.Tensor, t: torch.Tenso
     The kernel on CUDA tensors, reading ``wk`` (``pack_weight(wq)``, packed
     now if not given); :func:`conv_int8_reference` on CPU tensors.
     """
-    global LAUNCHES
     if mode not in MODES:
         raise ValueError(f"conv_int8: mode must be one of {sorted(MODES)}, got {mode!r}")
     if x.device.type != "cuda":
@@ -257,9 +245,7 @@ def conv_int8(x: torch.Tensor, wq: torch.Tensor, m: torch.Tensor, t: torch.Tenso
     kh, kw = wq.shape[:2]
     wk = pack_weight(wq) if wk is None else wk
     _check(x, wk, m, t, mode, res, r, kh, kw)
-    out = launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r)
-    LAUNCHES += 1
-    return out
+    return launch(x, wk, m, t, kh, kw, stride, pad, mode, res, r)
 
 
 def work(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int, stride: int,

@@ -19,8 +19,6 @@ import torch.nn.functional as F
 
 from yolo_tpu_torch.utils import kernels
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
 #: Channels one 16-byte vector of the kernel holds: C must be a multiple.
 VECTOR = 16
 
@@ -57,17 +55,9 @@ def _check(x: torch.Tensor) -> None:
 
 
 def _launch(x: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
-    device = x.device
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):  # the kernel launches on the current device
-            return _launch(x)
     n, h, w, c = x.shape
-    out = torch.empty((n, *out_size(h, w), c), dtype=torch.int8, device=device)
-    code = kernels.load().yolo_max_pool_int8(x.data_ptr(), out.data_ptr(), n, h, w, c,
-                                             torch._C._cuda_getCurrentRawStream(device.index))
-    kernels.check(code, "yolo_max_pool_int8 launch")
-    LAUNCHES += 1
+    out = torch.empty((n, *out_size(h, w), c), dtype=torch.int8, device=x.device)
+    kernels.launch("yolo_max_pool_int8", x.device, x.data_ptr(), out.data_ptr(), n, h, w, c)
     return out
 
 

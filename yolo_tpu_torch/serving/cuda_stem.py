@@ -21,8 +21,6 @@ import torch
 from yolo_tpu_torch.data.transforms import _NORM_BIAS, _NORM_SCALE, device_normalize
 from yolo_tpu_torch.utils import kernels
 
-#: Kernel launches since the count was last reset (set it to 0 to reset).
-LAUNCHES = 0
 #: The normalization's three scales, then its three biases, as the C entry
 #: point takes them (float32 values).
 _NORM_ARGS = tuple(float(v) for v in (*_NORM_SCALE, *_NORM_BIAS))
@@ -64,21 +62,13 @@ def _check(images: torch.Tensor, s_img: torch.Tensor) -> None:
 
 
 def _launch(images: torch.Tensor, s_img: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
-    device = images.device
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):  # the kernel launches on the current device
-            return _launch(images, s_img)
     n, h, w, _ = images.shape
     images = images.contiguous()
     s_img = s_img.contiguous()
-    out = torch.empty((n, h // 2, w // 2, 12), dtype=torch.int8, device=device)
-    code = kernels.load().yolo_quant_s2d(
-        images.data_ptr(), int(images.dtype == torch.uint8), s_img.data_ptr(),
-        out.data_ptr(), n, h, w, *_NORM_ARGS, torch._C._cuda_getCurrentRawStream(device.index),
-    )
-    kernels.check(code, "yolo_quant_s2d launch")
-    LAUNCHES += 1
+    out = torch.empty((n, h // 2, w // 2, 12), dtype=torch.int8, device=images.device)
+    kernels.launch("yolo_quant_s2d", images.device, images.data_ptr(),
+                   int(images.dtype == torch.uint8), s_img.data_ptr(), out.data_ptr(), n, h, w,
+                   *_NORM_ARGS)
     return out
 
 

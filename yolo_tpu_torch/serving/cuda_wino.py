@@ -26,9 +26,8 @@ where the scratch costs 4x x's bytes written and read again.
 :func:`plan` picks the GEMM's tile by shape. ``"taps"`` is the tap pass
 alone, ``"dots"`` and ``"dots-raw"`` the GEMM alone on all-zero taps (made
 by :func:`zero_taps`; the caller may pass them in, so that their zero-fill
-is not part of a timed call). A conv
-counts once in :data:`LAUNCHES` though it launches two kernels, as
-``cuda_int8`` counts a split-K conv once.
+is not part of a timed call). ``kernels.LAUNCHES`` counts the two C entry
+points apart; :data:`ENTRIES` names those each mode calls once.
 
 Its twins are :func:`conv3x3_wino_reference` (``winograd.conv3x3_wino_rq``)
 and :func:`wino_ablate_reference`; the kernels equal them bit for bit. On
@@ -41,19 +40,19 @@ C) (:func:`pack_taps`; ``engine.to_device`` stores it beside ``uq``).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from yolo_tpu_torch.serving import winograd
-
-#: Winograd convs and ablation calls per mode since the counts were last
-#: reset (set each to 0 to reset); a "full" conv's two kernels count once.
-LAUNCHES = {"full": 0, "taps": 0, "dots": 0, "dots-raw": 0}
+from yolo_tpu_torch.utils import kernels
 
 MODES = {"full": 0, "taps": 1, "dots": 2, "dots-raw": 3}
+#: The C entry points each mode calls once: the tap pass, the tap GEMM or both.
+ENTRIES = {"full": ("yolo_int8_wino_taps", "yolo_int8_wino_gemm"),
+           "taps": ("yolo_int8_wino_taps",), "dots": ("yolo_int8_wino_gemm",),
+           "dots-raw": ("yolo_int8_wino_gemm",)}
 ALIGN = 64  # channel granularity of the kernels (C stages and K column blocks)
 #: The tap GEMM's tiles (tile rows, output channels): 128-row tiles run two
 #: consumer warpgroups a block, 64-row tiles one.
@@ -142,22 +141,17 @@ def _check(x_q: torch.Tensor, qw: Dict, uk: torch.Tensor, mode: str) -> None:
         raise ValueError(f"int8_wino: a tap of the scratch, {mt} x {c}, must stay under 2 GB")
 
 
-# tap_pass and tap_gemm launch on the current device's current stream and
-# take operands that _check has passed; they are not counted (their callers
-# count), and chip_smoke.py times them one by one.
+# tap_pass and tap_gemm take operands that _check has passed; chip_smoke.py
+# times them one by one.
 def tap_pass(x_q: torch.Tensor, dinv: torch.Tensor,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Steps 1-2 (``winograd.tap_requant``): the (16, Mt, C) int8 taps, or
     with ``out`` ((N, H, W, K) int8) the ``"taps"`` mode's output there."""
-    from yolo_tpu_torch.utils import kernels
-
     n, h, w, c = x_q.shape
     dst = torch.empty(scratch_shape(n, h, w, c), dtype=torch.int8,
                       device=x_q.device) if out is None else out
-    code = kernels.load().yolo_int8_wino_taps(
-        x_q.data_ptr(), dinv.data_ptr(), dst.data_ptr(), n, h, w, c, dst.shape[-1],
-        int(out is not None), torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_int8_wino_taps launch")
+    kernels.launch("yolo_int8_wino_taps", x_q.device, x_q.data_ptr(), dinv.data_ptr(),
+                   dst.data_ptr(), n, h, w, c, dst.shape[-1], int(out is not None))
     return dst
 
 
@@ -166,16 +160,12 @@ def tap_gemm(vq: torch.Tensor, qw: Dict, uk: torch.Tensor, shape: Tuple[int, int
     """Steps 3-6 on the (16, Mt, C) taps ``vq`` of an (N, H, W) image batch:
     the (N, H, W, K) int8 output (``raw``: the dots-raw epilogue), with
     :func:`plan`'s tile."""
-    from yolo_tpu_torch.utils import kernels
-
     n, h, w = shape
     _, k, c = uk.shape
     out = torch.empty((n, h, w, k), dtype=torch.int8, device=vq.device)
-    code = kernels.load().yolo_int8_wino_gemm(
-        vq.data_ptr(), uk.data_ptr(), qw["mw"].data_ptr(), qw["t"].data_ptr(),
-        out.data_ptr(), n, h, w, c, k, plan(n, h, w, c, k), int(raw), int(leaky),
-        torch.cuda.current_stream().cuda_stream)
-    kernels.check(code, "yolo_int8_wino_gemm launch")
+    kernels.launch("yolo_int8_wino_gemm", vq.device, vq.data_ptr(), uk.data_ptr(),
+                   qw["mw"].data_ptr(), qw["t"].data_ptr(), out.data_ptr(), n, h, w, c, k,
+                   plan(n, h, w, c, k), int(raw), int(leaky))
     return out
 
 
@@ -191,28 +181,20 @@ def _launch(x_q: torch.Tensor, qw: Dict, mode: str, leaky: bool,
     _check(x_q, qw, uk, mode)
     n, h, w, c = x_q.shape
     k = uk.shape[1]
-    # Entering the device's context costs host time on every call; only a
-    # tensor on another than the current device needs it.
-    on_current = x_q.device.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if on_current else torch.cuda.device(x_q.device):
-        if mode == "taps":
-            out = tap_pass(x_q, qw["dinv"], torch.empty((n, h, w, k), dtype=torch.int8,
-                                                         device=x_q.device))
-        else:
-            if mode == "full":
-                vq = tap_pass(x_q, qw["dinv"])
-            elif zeros is None:
-                vq = zero_taps(x_q)
-            elif (zeros.dtype != torch.int8 or tuple(zeros.shape) != scratch_shape(n, h, w, c)
-                  or zeros.device != x_q.device or not zeros.is_contiguous()
-                  or zeros.data_ptr() % 16):
-                raise ValueError(f"int8_wino: zero taps must be contiguous 16-byte aligned "
-                                 f"{scratch_shape(n, h, w, c)} int8 on x's device")
-            else:
-                vq = zeros
-            out = tap_gemm(vq, qw, uk, (n, h, w), leaky, raw=mode == "dots-raw")
-    LAUNCHES[mode] += 1
-    return out
+    if mode == "taps":
+        return tap_pass(x_q, qw["dinv"], torch.empty((n, h, w, k), dtype=torch.int8,
+                                                     device=x_q.device))
+    if mode == "full":
+        vq = tap_pass(x_q, qw["dinv"])
+    elif zeros is None:
+        vq = zero_taps(x_q)
+    elif (zeros.dtype != torch.int8 or tuple(zeros.shape) != scratch_shape(n, h, w, c)
+          or zeros.device != x_q.device or not zeros.is_contiguous() or zeros.data_ptr() % 16):
+        raise ValueError(f"int8_wino: zero taps must be contiguous 16-byte aligned "
+                         f"{scratch_shape(n, h, w, c)} int8 on x's device")
+    else:
+        vq = zeros
+    return tap_gemm(vq, qw, uk, (n, h, w), leaky, raw=mode == "dots-raw")
 
 
 def conv3x3_wino(x_q: torch.Tensor, qc: Dict, leaky: bool = True) -> torch.Tensor:

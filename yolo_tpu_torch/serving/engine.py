@@ -13,14 +13,15 @@ named by ``wino=`` as per-tap int8 Winograd convs (``serving/winograd.py``,
 kernel ``csrc/int8_wino.cu``). The stem front (normalize,
 quantize, space-to-depth) is the kernel ``csrc/quant_s2d.cu``
 (``serving/cuda_stem.py``) and the 3x3/s2 max-pool after the stem is the
-kernel ``csrc/max_pool_int8.cu`` (``serving/cuda_pool.py``) under
-:func:`default_impl`, at any batch. The FC
+kernel ``csrc/max_pool_int8.cu`` (``serving/cuda_pool.py``), at any batch.
+The FC
 stack runs in bfloat16 values with float32 sums, and the decode + NMS tail
 (ops/decode.py, ops/cuda_nms.py) is the exact engine's.
 
 On CPU tensors each kernel wrapper runs its plain twin, so the same code is
-the CPU engine. ``conv=plain_conv`` runs the twins on the card too, for
-checks. q-params live in the JAX package's layout (HWIO weights, flax's fc1
+the CPU engine. A twin engine on the card, for checks, takes
+``conv=plain_conv`` and ``impl={"stem_front": cuda_stem.quant_s2d_reference,
+"max_pool": cuda_pool.max_pool_int8_reference}``. q-params live in the JAX package's layout (HWIO weights, flax's fc1
 row order); :func:`to_device` moves them to a device and adds the kernels'
 packed weights (``wk``, and ``uk`` for the Winograd taps) and float32
 copies of the bfloat16 FC weights (``wf``), which ``export.save_engine``
@@ -63,11 +64,6 @@ def _normalize_if_uint8(images: torch.Tensor) -> torch.Tensor:
     return images.to(torch.float32)
 
 
-#: The max-pool after the stem without a hook: the kernel's plain twin (JAX's
-#: ``reduce_window`` with init -128), on any device.
-max_pool_int8 = cuda_pool.max_pool_int8_reference
-
-
 def _block(x_q, qb, stride: int = 1, conv: Callable = kernel_conv,
            conv2_s1: Optional[Callable] = None):
     """One bottleneck block: three int8 convs with fused requants (+ downsample).
@@ -107,10 +103,12 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
     """Quantized serving forward: (N, H, W, 3) images -> (N, S, S, B*5+C) float32.
 
     ``images``: normalized float images, or raw resized uint8 RGB.
-    ``impl["stem_front"]`` (see :func:`default_impl`) replaces the eager
-    normalize + space-to-depth + quantize of the s2d stem;
-    ``impl["max_pool"]`` the eager 3x3/s2 max-pool after the stem
-    (:data:`max_pool_int8`);
+    ``impl["stem_front"]`` replaces the s2d stem's normalize + quantize +
+    space-to-depth (``cuda_stem.quant_s2d``); ``impl["max_pool"]`` the
+    3x3/s2 max-pool after the stem (``cuda_pool.max_pool_int8``). Both
+    defaults are kernels on CUDA tensors and their twins on CPU ones;
+    ``cuda_stem.quant_s2d_reference`` and ``cuda_pool.max_pool_int8_reference``
+    run the twins on the card too, and ``library.aot_impl`` the custom ops;
     ``impl["layer1"]`` .. ``impl["layer4"]`` run a stage's stride-1 blocks
     (e.g. ``cuda_bottleneck.chain_int8``, one fused launch per stage; the
     JAX engine's W padding to 32 columns was a TPU constraint and is gone);
@@ -123,20 +121,15 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
     impl = impl or {}
     stem = q["stem"]
     if stem["wq"].shape[0] == 4:  # space-to-depth stem (quant.s2d_stem_weights)
-        stem_front = impl.get("stem_front")
-        if stem_front is not None:
-            src = images if images.dtype in (torch.uint8, torch.float32) \
-                else images.to(torch.float32)
-            xs = stem_front(src, q["s_img"])
-        else:
-            xs = cuda_stem.quantize_input(
-                cuda_stem.space_to_depth(_normalize_if_uint8(images)), q["s_img"])
+        src = images if images.dtype in (torch.uint8, torch.float32) \
+            else images.to(torch.float32)
+        xs = impl.get("stem_front", cuda_stem.quant_s2d)(src, q["s_img"])
         x_q = conv(xs, stem, 1, ((2, 1), (2, 1)), "relu")
     else:
         x_q = cuda_stem.quantize_input(_normalize_if_uint8(images), q["s_img"])
         x_q = conv(x_q, stem, 2, 3, "relu")
     with tracing.span("engine.max_pool"):
-        x_q = impl.get("max_pool", max_pool_int8)(x_q)
+        x_q = impl.get("max_pool", cuda_pool.max_pool_int8)(x_q)
 
     for si, blocks in enumerate(q["layers"]):
         # impl[f"layer{i}"] is a stage-chain hook (x_q, qblocks) -> x_q over
@@ -185,8 +178,10 @@ def int8_forward(q: Dict, images: torch.Tensor, S: int = 7, impl: Optional[Dict]
 
 
 def default_impl() -> Dict:
-    """The engine's default stage map: the stem-front and max-pool kernels, at any batch."""
-    return {"stem_front": cuda_stem.quant_s2d, "max_pool": cuda_pool.max_pool_int8}
+    """``{}``: :func:`int8_forward` runs the stem-front and max-pool kernels
+    without a hook. A shim kept only for ``portbench/systems.py``, which
+    still passes it."""
+    return {}
 
 
 def to_device(q: Dict, device) -> Dict:
@@ -234,11 +229,7 @@ def load_artifact(path, model, device) -> tuple:
                 f"engine artifact {path} was exported for {attr}={meta[attr]} but the"
                 f" model has {getattr(model, attr)}")
     q = to_device(q, device)
-    impl = default_impl()
-    wino = wino_points_of(q)
-    if wino:
-        impl = wino_impl_hooks(wino, impl)
-    return q, impl, meta
+    return q, wino_impl_hooks(wino_points_of(q)), meta
 
 
 def make_int8_engine_fn(S: int, B: int, num_classes: int, impl: Optional[Dict] = None,

@@ -24,11 +24,11 @@ buffer and replays the graph.
 - A failed capture raises with the CUDA error. There is no eager fallback:
   the CPU path is the caller's explicit choice, and a CPU device raises.
 
-The kernel wrappers' Python launch counters move at capture, not at replay.
-So each graph keeps how far each counter moved during its capture
-(``library.launch_counts``), and :meth:`GraphedPredict.launches` gives the
-launches its replays issued: replays x captured launches, summed over the
-shapes. ``captures`` and ``replays`` count both.
+The kernels' launch counts (``kernels.LAUNCHES``, by C entry point) move
+at capture, not at replay. So each graph keeps how far each count moved
+during its capture, and :meth:`GraphedPredict.launches` gives the launches
+its replays issued: replays x captured launches, summed over the shapes.
+``captures`` and ``replays`` count both.
 
 With the tracer on (``utils/tracing.py``), a call records ``graphs.copy_in``
 and ``graphs.replay`` (host times only: their reader, the idle-gap labels,
@@ -52,8 +52,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from yolo_tpu_torch.ops.decode import Detections
-from yolo_tpu_torch.serving.library import launch_counts
-from yolo_tpu_torch.utils import tracing
+from yolo_tpu_torch.utils import kernels, tracing
 
 #: Eager runs of the callable before each capture.
 WARMUP_RUNS = 2
@@ -111,7 +110,7 @@ class GraphedPredict:
         return sum(g.replays for g in self._graphs.values())
 
     def launches(self) -> Counter:
-        """Kernel launches issued by the replays so far, by kernel name."""
+        """Kernel launches issued by the replays so far, by C entry point."""
         out = Counter()
         for g in self._graphs.values():
             out.update({k: g.replays * n for k, n in g.launches.items()})
@@ -158,10 +157,10 @@ class GraphedPredict:
     def _capture(self, shape, dtype) -> _Graph:
         static_in = torch.zeros(shape, dtype=dtype, device=self.device)
         self._warm_up(static_in)
-        before = launch_counts()
+        before = Counter(kernels.LAUNCHES)
         graph, static_out = self._graph_of(static_in)
         self.captures += 1
-        return _Graph(graph, static_in, static_out, launch_counts() - before)
+        return _Graph(graph, static_in, static_out, kernels.LAUNCHES - before)
 
     def _warm_up(self, static_in: torch.Tensor) -> None:
         """Eager runs on a side stream, as torch.cuda.graph's docs ask: kernels

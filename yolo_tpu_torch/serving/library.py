@@ -17,26 +17,21 @@ exported graph:
   (kernel ``csrc/nms.cu``).
 
 Each op's implementation is its wrapper: on CUDA tensors the kernel runs
-(and its ``LAUNCHES`` counter moves), on CPU tensors the plain twin; a CUDA
+(and ``kernels.LAUNCHES`` counts it), on CPU tensors the plain twin; a CUDA
 tensor never reaches the twin. :func:`aot_impl`, :func:`aot_conv` and
 :func:`aot_nms` have the engine's hook signatures
 (``engine.make_int8_engine_fn(..., impl=, nms_fn=, conv=)``) and call the
 ops; ``export.save_compiled_engine`` builds its engine with them.
-:func:`launch_counts` reads every serving kernel wrapper's ``LAUNCHES``:
-these four, the fused chain's and Winograd's, and ``cuda_dynq``'s (the
-quantize in front of each ``Int8Conv2d``, which only the uncalibrated
-``quantized=True`` models run, so it has no op either).
 
 Only the export goes through the ops. A custom op's dispatch costs host time
-on every call, so the eager and graphed engine (``engine.default_impl``,
-``engine.kernel_conv``, ``cuda_nms.nms``) calls the wrappers directly. The
-fused chain and Winograd hooks have no op: the AOT artifact serves the
-default engine only.
+on every call (``chip_smoke.py`` phase 36 times both), so the eager and graphed engine
+(``engine.int8_forward``'s defaults, ``engine.kernel_conv``,
+``cuda_nms.nms``) calls the wrappers directly. The fused chain and Winograd
+hooks have no op: the AOT artifact serves the default engine only.
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -44,8 +39,7 @@ import torch
 from yolo_tpu_torch.ops import cuda_nms
 from yolo_tpu_torch.ops.boxes import EPSILON
 from yolo_tpu_torch.ops.decode import Detections
-from yolo_tpu_torch.serving import (cuda_bottleneck, cuda_dynq, cuda_int8, cuda_pool, cuda_stem,
-                                    cuda_wino)
+from yolo_tpu_torch.serving import cuda_int8, cuda_pool, cuda_stem
 
 NAMESPACE = "yolo_tpu_torch"
 _DEVICES = ("cpu", "cuda")
@@ -123,7 +117,8 @@ def aot_conv(x, qc: Dict, stride: int = 1, pad=0, mode: str = "relu", res=None, 
 
 
 def aot_impl() -> Dict:
-    """``engine.default_impl`` through ``quant_s2d`` and ``max_pool_int8``."""
+    """The engine's stem-front and max-pool overrides through ``quant_s2d`` and
+    ``max_pool_int8``."""
     return {"stem_front": torch.ops.yolo_tpu_torch.quant_s2d,
             "max_pool": torch.ops.yolo_tpu_torch.max_pool_int8}
 
@@ -132,13 +127,3 @@ def aot_nms(dets: Detections, iou_threshold: float = 0.4, eps: float = EPSILON) 
     """``cuda_nms.nms`` through ``nms_keep``."""
     keep = torch.ops.yolo_tpu_torch.nms_keep(*cuda_nms.keep_args(dets, iou_threshold, eps))
     return dets._replace(valid=keep.reshape(dets.scores.shape))
-
-
-def launch_counts() -> Counter:
-    """The serving kernel wrappers' launch counters, by kernel name."""
-    counts = Counter(quant_s2d=cuda_stem.LAUNCHES, max_pool=cuda_pool.LAUNCHES,
-                     conv_int8=cuda_int8.LAUNCHES, nms=cuda_nms.LAUNCHES,
-                     dynq=cuda_dynq.LAUNCHES)
-    counts.update(cuda_bottleneck.LAUNCHES)
-    counts.update({f"wino.{mode}": n for mode, n in cuda_wino.LAUNCHES.items()})
-    return counts

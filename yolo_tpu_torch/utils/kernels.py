@@ -8,16 +8,25 @@ seconds. The library lands in
 and the flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: the first call to :func:`load` builds.
+
+Every wrapper calls its C entry point through :func:`launch`: the device
+guard, the current stream, the error check and the count in
+:data:`LAUNCHES` live here, and an entry point's signature is its line of
+:data:`SIGNATURES`.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from yolo_tpu_torch.utils import tracing
 
@@ -33,6 +42,37 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+_vp, _ci, _cf, _cd, _cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double,
+                            ctypes.c_longlong)
+_ptrs, _int_out = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+
+#: Each C entry point's argument types, its last argument the stream
+#: :func:`launch` appends. Each returns a cudaError_t as an int.
+SIGNATURES = {
+    "yolo_nms": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _cf, _cf, _vp],
+    "yolo_nms_f64": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _cd, _cd, _vp],
+    "yolo_empty": [_ci, _ci, _vp],
+    "yolo_bn_stats": [_vp, _vp, _vp, _cll, _ci, _ci, _ci, _vp],
+    "yolo_bn_normalize": [_vp, _vp, _vp, _vp, _cll, _ci, _ci, _ci, _ci, _vp],
+    "yolo_bn_bwd_reduce": [_vp, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _ci, _ci, _vp],
+    "yolo_bn_bwd_dx": [_vp, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _ci, _ci, _vp],
+    "yolo_quant_s2d": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _cf, _cf, _cf, _cf, _cf, _cf, _vp],
+    "yolo_dynq": [_vp, _cll, _vp, _vp, _ci, _vp],
+    "yolo_max_pool_int8": [_vp, _vp, _ci, _ci, _ci, _ci, _vp],
+    "yolo_int8_conv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, *([_ci] * 16), _vp, _vp],
+    "yolo_int8_bottleneck": [_vp, _vp, _ptrs, *([_ci] * 7), _int_out, _vp],
+    "yolo_int8_chain": [_vp, _vp, _vp, _vp, _ptrs, *([_ci] * 9), _int_out, _vp],
+    "yolo_int8_wino_taps": [_vp, _vp, _vp, *([_ci] * 6), _vp],
+    "yolo_int8_wino_gemm": [_vp, _vp, _vp, _vp, _vp, *([_ci] * 8), _vp],
+    "yolo_adam_update": [_vp, _vp, _vp, _vp, _vp, _cll, _vp],
+    "yolo_bf16_conv3x3": [_vp, _vp, _vp, _vp, _vp, *([_ci] * 6), _vp],
+    "yolo_bf16_bottleneck": [*([_vp] * 8), *([_ci] * 7), _vp],
+}
+
+#: Successful calls of each C entry point, by its name. A CUDA graph's
+#: replay calls none: its launches count once, at capture.
+LAUNCHES: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
 
@@ -113,37 +153,10 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         with tracing.span("kernels.load"):
             lib = ctypes.CDLL(str(build()))
-            vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-            lib.yolo_nms.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, cf, vp]
-            cd = ctypes.c_double
-            lib.yolo_nms_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, cd, cd, vp]
-            lib.yolo_empty.argtypes = [ci, ci, vp]
-            lib.yolo_bn_stats.argtypes = [vp, vp, vp, cll, ci, ci, ci, vp]
-            lib.yolo_bn_normalize.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
-            lib.yolo_bn_bwd_reduce.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
-            lib.yolo_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, cll, ci, ci, ci, ci, vp]
-            lib.yolo_quant_s2d.argtypes = [vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp]
-            lib.yolo_dynq.argtypes = [vp, cll, vp, vp, ci, vp]
-            lib.yolo_max_pool_int8.argtypes = [vp, vp, ci, ci, ci, ci, vp]
-            lib.yolo_int8_conv.argtypes = [vp, vp, vp, vp, vp, vp, vp, *([ci] * 16), vp, vp]
-            ptrs = ctypes.POINTER(vp)
-            lib.yolo_int8_bottleneck.argtypes = [vp, vp, ptrs, *([ci] * 7), ctypes.POINTER(ci), vp]
-            lib.yolo_int8_chain.argtypes = [vp, vp, vp, vp, ptrs, *([ci] * 9),
-                                            ctypes.POINTER(ci), vp]
-            lib.yolo_int8_wino_taps.argtypes = [vp, vp, vp, *([ci] * 6), vp]
-            lib.yolo_int8_wino_gemm.argtypes = [vp, vp, vp, vp, vp, *([ci] * 8), vp]
-            lib.yolo_adam_update.argtypes = [vp, vp, vp, vp, vp, cll, vp]
-            lib.yolo_bf16_conv3x3.argtypes = [vp, vp, vp, vp, vp, *([ci] * 6), vp]
-            lib.yolo_bf16_bottleneck.argtypes = [*([vp] * 8), *([ci] * 7), vp]
-            for fn in (lib.yolo_nms, lib.yolo_nms_f64, lib.yolo_empty, lib.yolo_bn_stats,
-                       lib.yolo_bn_normalize, lib.yolo_bn_bwd_reduce, lib.yolo_bn_bwd_dx,
-                       lib.yolo_quant_s2d, lib.yolo_dynq, lib.yolo_max_pool_int8,
-                       lib.yolo_int8_conv,
-                       lib.yolo_int8_bottleneck, lib.yolo_int8_chain,
-                       lib.yolo_int8_wino_taps, lib.yolo_int8_wino_gemm, lib.yolo_adam_update,
-                       lib.yolo_bf16_conv3x3, lib.yolo_bf16_bottleneck):
-                fn.restype = ci
-            lib.yolo_cuda_error_string.argtypes = [ci]
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
             lib.yolo_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
@@ -154,3 +167,20 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = load().yolo_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: cudaError {code} ({msg})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``device`` (a CUDA tensor's device) as its last argument; raise if it
+    fails, else count it in :data:`LAUNCHES`.
+
+    The kernels launch on the current device, so its guard is entered only
+    when ``device`` is another: entering it costs host time on every call.
+    """
+    index = device.index
+    guard = (contextlib.nullcontext() if index == torch.cuda.current_device()
+             else torch.cuda.device(index))
+    with guard:
+        code = getattr(load(), name)(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(code, f"{name} launch")
+    LAUNCHES[name] += 1

@@ -31,8 +31,8 @@ finished span is a plain tuple, which the garbage collector stops tracking,
 so a long traced run does not lengthen its collections.
 
 Counters stay plain integers on the objects that do the work
-(``RequestBatcher.slots_dispatched``, ``GraphedPredict.replays``, the kernel
-wrappers' ``LAUNCHES``); this module keeps spans only.
+(``RequestBatcher.slots_dispatched``, ``GraphedPredict.replays``,
+``kernels.LAUNCHES``); this module keeps spans only.
 """
 
 from __future__ import annotations
